@@ -1,0 +1,28 @@
+"""chunky-bits on PyTorch and CUDA: the erasure plane for an NVIDIA H100.
+
+A port of ``chunky_bits_tpu`` (the JAX/TPU package, kept beside it as the
+reference).  Files are split into parts of ``d`` data + ``p`` parity chunks
+(Reed-Solomon over GF(2^8)), content-addressed by SHA-256.  This package
+holds the compute plane: the GF(2^8) transform and per-shard SHA-256 as
+CUDA kernels written for Hopper (``csrc/``), the ``ErasureCoder`` that
+drives them and the batchers the file layer calls.  Every kernel has a
+plain PyTorch version beside it, which runs for tensors on the CPU.
+
+The package imports ``torch``, numpy and the stdlib, never ``jax`` and
+nothing of ``chunky_bits_tpu``, and reads only ``CHUNKY_BITS_TORCH_*``
+environment variables.
+"""
+
+__version__ = "0.1.0"
+
+from chunky_bits_tpu_torch.errors import (  # noqa: F401
+    ChunkyBitsError,
+    ClusterError,
+    ErasureError,
+    FileReadError,
+    FileWriteError,
+    LocationError,
+    LocationParseError,
+    MetadataReadError,
+    ShardError,
+)

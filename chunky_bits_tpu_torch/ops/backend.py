@@ -1,0 +1,339 @@
+"""The ``ErasureBackend`` boundary and the per-geometry ``ErasureCoder``.
+
+The port of ``chunky_bits_tpu/ops/backend.py``, at the same boundary the
+reference has between its part codec and the ``reed-solomon-erasure``
+crate (reference: src/file/file_part.rs:77,128,161-165,302-305).
+
+A backend implements one primitive, applying a GF(2^8) matrix to a batch
+of stacked shards; the coder builds the encode/decode matrices on the host
+(they are tiny) and dispatches batches to it.  Data crosses as numpy uint8
+arrays at the JAX package's layouts (matrix ``[R, K]``, shards
+``[B, K, S]``, digests ``[B, d+p, 32]``).  Backends:
+
+* ``numpy`` - pure-numpy table codec on the host.
+* ``torch`` - the kernels' plain PyTorch versions on the CPU.
+* ``cuda``  - the hand-written kernels on the card (ops/cuda_backend.py);
+  the default.  It raises ``ErasureError`` when there is no card or a
+  kernel fails; it never hands back a CPU backend in its place.
+
+All of them produce byte-identical shards and digests; tests assert it.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+import warnings
+from abc import ABC, abstractmethod
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from chunky_bits_tpu_torch.errors import ErasureError
+from chunky_bits_tpu_torch.ops import gf256, gf_kernel, matrix, sha256
+
+
+def as_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``arr``'s memory, made contiguous first.  It
+    aliases the caller's array, so nothing in the port writes into it;
+    torch's warning for read-only arrays is silenced for that reason."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(arr)
+
+
+class ErasureBackend(ABC):
+    """Applies GF(2^8) matrices to batches of shards."""
+
+    name: str = "abstract"
+
+    @abstractmethod
+    def apply_matrix(self, mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        """out[b, i, s] = XOR_k mat[i, k] ⊗ shards[b, k, s].
+
+        ``mat`` is uint8 [r, k]; ``shards`` is uint8 [B, k, S]; returns
+        uint8 [B, r, S].
+        """
+
+
+class NumpyBackend(ErasureBackend):
+    """Vectorized table-lookup codec on the host: the oracle."""
+
+    name = "numpy"
+
+    def apply_matrix(self, mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        b, k, s = shards.shape
+        r = mat.shape[0]
+        out = np.zeros((b, r, s), dtype=np.uint8)
+        for i in range(r):
+            acc = out[:, i, :]
+            for j in range(k):
+                c = int(mat[i, j])
+                if c == 0:
+                    continue
+                if c == 1:
+                    acc ^= shards[:, j, :]
+                else:
+                    acc ^= gf256.gf_mul_bytes(c, shards[:, j, :])
+        return out
+
+
+class TorchBackend(ErasureBackend):
+    """The kernels' plain PyTorch versions on the CPU: the same two steps
+    as the ``cuda`` backend's fused ingest, parity then the digests of
+    all d+p rows, computed by ``apply_matrix_plain`` and
+    ``sha256_rows_plain``."""
+
+    name = "torch"
+
+    #: batchers merge concurrent requests: the plain versions are vector
+    #: ops over the whole batch, and the SHA loop costs per block, not
+    #: per row, so one merged call does the work of many
+    prefers_merged_batches = True
+
+    def apply_matrix(self, mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        table = gf_kernel.to_device_matrix(mat, "cpu")
+        return gf_kernel.apply_matrix(table, as_tensor(shards)).numpy()
+
+    def encode_and_hash(
+        self, mat: np.ndarray, shards: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        data = as_tensor(shards)
+        parity = gf_kernel.apply_matrix(
+            gf_kernel.to_device_matrix(mat, "cpu"), data)
+        digests = sha256.sha256_parts(data, parity)
+        return parity.numpy(), digests.numpy()
+
+
+_REGISTRY: dict[str, ErasureBackend] = {}
+_REGISTRY_LOCK = threading.Lock()
+
+
+def register_backend(backend: ErasureBackend) -> None:
+    with _REGISTRY_LOCK:
+        _REGISTRY[backend.name] = backend
+
+
+def get_backend(name: Optional[str] = None) -> ErasureBackend:
+    """Resolve a backend by name, building it lazily.
+
+    ``None`` resolves the default: ``$CHUNKY_BITS_TORCH_BACKEND`` if set,
+    else ``cuda``.  ``cuda`` raises ``ErasureError`` without a card.
+    """
+    if name is None:
+        from chunky_bits_tpu_torch.cluster.tunables import BACKEND_ENV, env_str
+
+        name = env_str(BACKEND_ENV) or "cuda"
+    with _REGISTRY_LOCK:
+        if name in _REGISTRY:
+            return _REGISTRY[name]
+    if name == "numpy":
+        backend: ErasureBackend = NumpyBackend()
+    elif name == "torch":
+        backend = TorchBackend()
+    elif name == "cuda":
+        from chunky_bits_tpu_torch.ops.cuda_backend import CudaBackend
+
+        backend = CudaBackend()
+    else:
+        raise ErasureError(f"unknown erasure backend {name!r}")
+    register_backend(backend)
+    return backend
+
+
+def _hash_rows_hashlib(rows: np.ndarray, out: np.ndarray) -> None:
+    """out[..., 32] = sha256 of each row of uint8 rows[..., S]."""
+    for idx in np.ndindex(rows.shape[:-1]):
+        out[idx] = np.frombuffer(
+            hashlib.sha256(np.ascontiguousarray(rows[idx])).digest(),
+            dtype=np.uint8)
+
+
+def row_hasher() -> Callable[[np.ndarray, np.ndarray], None]:
+    """Bulk shard-row hasher ``fn(rows[..., S], out[..., 32])`` on the
+    host.  hashlib for now; the native SHA-NI engine comes with the port
+    of ``native/gf256.cpp``."""
+    return _hash_rows_hashlib
+
+
+_CODER_CACHE: dict[tuple[int, int, str, str], "ErasureCoder"] = {}
+_CODER_LOCK = threading.Lock()
+
+#: the closed set of erasure codes a part may declare (file/chunk.py
+#: ``code:`` field); the port codes ``rs`` so far and refuses ``pm-msr``
+KNOWN_CODES = ("rs", "pm-msr")
+
+
+class ErasureCoder:
+    """Reed-Solomon codec for one (d, p) geometry — the ``ReedSolomon::new``
+    equivalent (reference: src/file/file_part.rs:77).
+
+    Batched variants take uint8 arrays shaped [B, shards, S]; the scalar
+    variants mirror the crate's per-part API and are thin wrappers.
+    """
+
+    code = "rs"
+
+    def __init__(self, data: int, parity: int,
+                 backend: Optional[ErasureBackend] = None) -> None:
+        if data < 1:
+            raise ErasureError("data shard count must be >= 1")
+        if parity < 0:
+            raise ErasureError("parity shard count must be >= 0")
+        self.data = data
+        self.parity = parity
+        self.backend = backend or get_backend()
+        self.encode_matrix = matrix.build_encode_matrix(data, parity)
+        self.parity_rows = self.encode_matrix[data:]
+
+    def shard_len(self, length: int) -> int:
+        """Bytes per shard for a part holding ``length`` meaningful
+        bytes — the reference's round-up split
+        (src/file/file_part.rs:150-158)."""
+        return (length + self.data - 1) // self.data if length > 0 else 0
+
+    def _check_data(self, data: np.ndarray) -> None:
+        if data.ndim != 3 or data.shape[1] != self.data:
+            raise ErasureError(
+                f"expected data shaped [B, {self.data}, S], got {data.shape}")
+
+    # ---- batched API ----
+
+    def encode_batch(self, data: np.ndarray) -> np.ndarray:
+        """parity[B, p, S] from data[B, d, S] (crate: ``encode_sep``)."""
+        self._check_data(data)
+        if self.parity == 0:
+            b, _, s = data.shape
+            return np.zeros((b, 0, s), dtype=np.uint8)
+        return self.backend.apply_matrix(self.parity_rows, data)
+
+    def encode_hash_batch(
+        self, data: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Parity plus per-shard content hashes for a batch of parts —
+        the ingest step's full compute (reference: encode at
+        src/file/file_part.rs:161-165, per-shard sha256 at :185).
+
+        Returns ``(parity[B, p, S], digests[B, d+p, 32])`` with digest
+        rows ordered data shards then parity shards.  Backends exposing
+        ``encode_and_hash`` do both in one call; otherwise parity comes
+        from ``encode_batch`` and the rows are hashed on the host.
+        """
+        self._check_data(data)
+        data = np.ascontiguousarray(data)
+        fused = getattr(self.backend, "encode_and_hash", None)
+        if fused is not None:
+            return fused(self.parity_rows, data)
+        parity = self.encode_batch(data)
+        digests = np.empty((data.shape[0], self.data + self.parity, 32),
+                           dtype=np.uint8)
+        hash_rows = row_hasher()
+        hash_rows(data, digests[:, :self.data])
+        hash_rows(parity, digests[:, self.data:])
+        return parity, digests
+
+    def reconstruct_batch(
+        self, shards: np.ndarray, present: Sequence[int],
+        wanted: Sequence[int],
+    ) -> np.ndarray:
+        """Rebuild ``wanted`` shard rows for a batch sharing one erasure
+        pattern.  ``shards[B, d+p, S]`` need only be valid at ``present``
+        rows.  Returns [B, len(wanted), S].
+        """
+        present = sorted(present)
+        picked = shards[:, np.array(present[: self.data], dtype=np.intp), :]
+        return self.reconstruct_batch_picked(picked, present, wanted)
+
+    def reconstruct_batch_picked(
+        self, picked: np.ndarray, present: Sequence[int],
+        wanted: Sequence[int],
+    ) -> np.ndarray:
+        """Like ``reconstruct_batch`` but over shards already gathered in
+        decode layout: ``picked[B, d, S]`` holds the rows at
+        ``sorted(present)[:d]``, in that order."""
+        present = sorted(present)
+        dec = matrix.decode_matrix(self.encode_matrix, list(present),
+                                   list(wanted))
+        return self.backend.apply_matrix(dec, picked)
+
+    # ---- per-part API mirroring the crate ----
+
+    def encode(self, data_shards: Sequence[np.ndarray]) -> list[np.ndarray]:
+        """Parity shards for one part's data shards (equal-length rows)."""
+        rows = [np.frombuffer(s, dtype=np.uint8)
+                if not isinstance(s, np.ndarray) else s
+                for s in data_shards]
+        if len({len(r) for r in rows}) > 1:
+            raise ErasureError("shards must be of equal length")
+        stacked = np.stack(rows)[None, ...]
+        return list(self.encode_batch(stacked)[0])
+
+    def _reconstruct_impl(
+        self, shards: list[Optional[np.ndarray]], data_only: bool
+    ) -> list[Optional[np.ndarray]]:
+        total = self.data + self.parity
+        if len(shards) != total:
+            raise ErasureError(
+                f"expected {total} shard slots, got {len(shards)}")
+        present = [i for i, s in enumerate(shards) if s is not None]
+        if len(present) == total:
+            return shards
+        if len(present) < self.data:
+            raise ErasureError(
+                f"too few shards present: {len(present)} < {self.data}")
+        limit = self.data if data_only else total
+        missing = [i for i in range(limit) if shards[i] is None]
+        if not missing:
+            return shards
+        size = len(shards[present[0]])
+        stacked = np.zeros((1, total, size), dtype=np.uint8)
+        for i in present:
+            row = shards[i]
+            if not isinstance(row, np.ndarray):
+                row = np.frombuffer(row, dtype=np.uint8)
+            if len(row) != size:
+                raise ErasureError("shards must be of equal length")
+            stacked[0, i] = row
+        rebuilt = self.reconstruct_batch(stacked, present, missing)[0]
+        out = list(shards)
+        for row, idx in zip(rebuilt, missing):
+            out[idx] = row
+        return out
+
+    def reconstruct(
+        self, shards: list[Optional[np.ndarray]]
+    ) -> list[Optional[np.ndarray]]:
+        """Fill every missing shard (crate: ``reconstruct``,
+        reference call site src/file/file_part.rs:302-305)."""
+        return self._reconstruct_impl(shards, data_only=False)
+
+    def reconstruct_data(
+        self, shards: list[Optional[np.ndarray]]
+    ) -> list[Optional[np.ndarray]]:
+        """Fill missing *data* shards only (crate: ``reconstruct_data``,
+        reference call site src/file/file_part.rs:128)."""
+        return self._reconstruct_impl(shards, data_only=True)
+
+
+def get_coder(data: int, parity: int,
+              backend: Optional[str] = None,
+              code: str = "rs") -> ErasureCoder:
+    """Cached coder lookup; matrices are rebuilt once per
+    (d, p, backend, code).  An unknown ``code`` raises ErasureError, and
+    so does ``pm-msr`` until its coder is ported."""
+    if code not in KNOWN_CODES:
+        raise ErasureError(
+            f"unknown erasure code {code!r} (this reader knows "
+            f"{', '.join(KNOWN_CODES)})")
+    if code == "pm-msr":
+        raise ErasureError("erasure code 'pm-msr' is not yet ported")
+    be = get_backend(backend)
+    key = (data, parity, be.name, code)
+    with _CODER_LOCK:
+        coder = _CODER_CACHE.get(key)
+        if coder is None:
+            coder = ErasureCoder(data, parity, be)
+            _CODER_CACHE[key] = coder
+        return coder

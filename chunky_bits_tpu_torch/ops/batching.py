@@ -1,0 +1,267 @@
+"""Coalesce concurrent erasure-codec calls into batched device dispatches.
+
+The reference runs one codec call per part on the blocking pool — encode at
+src/file/file_part.rs:161-165, reconstruct at :128,302-305.  That shape
+wastes a TPU: dispatch overhead dominates small calls, while the kernel
+itself is throughput-bound and loves batch.  Concurrency that already
+exists in the pipelines (resilver keeps 10 parts in flight
+src/file/file_reference.rs:110, reads prefetch 5 src/file/reader.rs:96,
+the gateway serves many PUTs at once) is turned into batch here: whatever
+requests are in flight at the same moment are grouped by compatible shape
+and executed as one ``[B, ...]`` dispatch.
+
+Requests that arrive while a dispatch is running accumulate and form the
+next batch, so batching emerges from concurrency without added latency: a
+lone request is dispatched immediately.
+
+The port of ``chunky_bits_tpu/ops/batching.py`` with the same keys and
+merge policy.  Not ported yet: the ``host_pipeline`` argument and the
+``submit_apply`` feed-ahead route, which need the host pipeline and the
+dispatch pipeline (ROADMAP Queue A, item 6).
+"""
+
+from __future__ import annotations
+
+import asyncio
+from typing import Optional, Sequence
+
+import numpy as np
+
+from chunky_bits_tpu_torch.errors import ErasureError
+from chunky_bits_tpu_torch.ops.backend import get_coder
+
+
+class _GroupItemError:
+    """Per-item failure marker in a ``_run_group`` result list: lets a
+    group deliver a mix of results and exceptions, so one bad batch in
+    an UNMERGED group fails only its own waiter (a merged dispatch has
+    no such boundary — every contributing waiter shares its fate)."""
+
+    __slots__ = ("err",)
+
+    def __init__(self, err: BaseException):
+        self.err = err
+
+
+class _CoalescingBatcher:
+    """Group concurrent requests by key and dispatch each group once.
+
+    Instances are per-pipeline (one read stream, one resilver run, one
+    cluster ingest scope) and must be used from a single event loop.
+    Subclasses implement ``_run_group(key, payloads) -> results`` (called
+    in a worker thread).  The ``_pending``/``_task``/``_inflight``
+    bookkeeping is lock-free because it never leaves the owning loop's
+    thread.
+    """
+
+    def __init__(self, backend: Optional[str] = None, max_batch: int = 128):
+        self.backend = backend
+        self.max_batch = max_batch
+        self._pending: list[tuple[tuple, object, asyncio.Future]] = []
+        self._task: Optional[asyncio.Task] = None
+        self._inflight: set[asyncio.Task] = set()
+        #: codec dispatches issued (merged batches count once; unmerged
+        #: CPU batches count each)
+        self.dispatches = 0
+        #: coalesced groups executed (one per _run_group call) — the
+        #: request-grouping factor independent of the merge policy
+        self.groups = 0
+
+    async def _submit(self, key: tuple, payload):
+        fut = asyncio.get_running_loop().create_future()
+        self._pending.append((key, payload, fut))
+        if self._task is None or self._task.done():
+            self._task = asyncio.create_task(self._drain())
+        # resolved (result or exception) by _dispatch in every outcome
+        return await fut
+
+    async def _drain(self) -> None:
+        # Yield once so callers scheduled in the same tick can enqueue
+        # before the first dispatch.
+        await asyncio.sleep(0)
+        pending, self._pending = self._pending, []
+        groups: dict[tuple, list] = {}
+        for item in pending:
+            groups.setdefault(item[0], []).append(item)
+        # Distinct keys are independent work, and nothing waits on anyone
+        # else's group: each dispatch is fired as its own task (no barrier
+        # — a slow group must not stall either the other groups' results
+        # or the next round of arrivals, which simply start a new drain).
+        for key, items in groups.items():
+            for i in range(0, len(items), self.max_batch):
+                task = asyncio.create_task(
+                    self._dispatch(key, items[i:i + self.max_batch]))
+                self._inflight.add(task)
+                task.add_done_callback(self._inflight.discard)
+
+    async def _dispatch(self, key: tuple, group: list) -> None:
+        self.groups += 1
+        try:
+            results = await asyncio.to_thread(
+                self._run_group, key, [g[1] for g in group])
+        # delivered to every waiter via fut.set_exception;
+        # CancelledError additionally re-raised
+        except BaseException as err:
+            for _, _, fut in group:
+                if not fut.done():
+                    fut.set_exception(err)
+            if isinstance(err, asyncio.CancelledError):
+                raise
+        else:
+            for (_, _, fut), res in zip(group, results):
+                if not fut.done():
+                    if isinstance(res, _GroupItemError):
+                        fut.set_exception(res.err)
+                    else:
+                        fut.set_result(res)
+
+    async def aclose(self) -> None:
+        """Drain: await the pending collection task and every in-flight
+        dispatch, so owners tearing down (end of a read stream, resilver
+        run, or event loop) never abandon waiter futures mid-flight.
+        Dispatch errors are delivered to their waiters, not raised here."""
+        while True:
+            tasks = set(self._inflight)
+            if self._task is not None and not self._task.done():
+                tasks.add(self._task)
+            if not tasks:
+                return
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+    def _run_group(self, key: tuple, payloads: list) -> list:
+        raise NotImplementedError
+
+
+class ReconstructBatcher(_CoalescingBatcher):
+    """Batched decode front-end for the read and resilver paths.
+
+    Groups by (geometry, erasure pattern, shard length): the parts of one
+    file degraded by the same node loss share a pattern and rebuild in one
+    ``[B, d+p, S]`` dispatch through ``ErasureCoder.reconstruct_batch``.
+    """
+
+    async def reconstruct(
+        self, d: int, p: int, arrays: Sequence[Optional[np.ndarray]],
+        data_only: bool = False, code: str = "rs",
+    ) -> list[Optional[np.ndarray]]:
+        """Async equivalent of ``ErasureCoder.reconstruct`` /
+        ``reconstruct_data`` (crate call sites file_part.rs:128,302-305):
+        fill the ``None`` rows of ``arrays`` (all d+p slots, data first).
+        ``code`` is the part's wire-format erasure code — requests only
+        coalesce within a code (the decode matrices differ).
+        """
+        total = d + p
+        if len(arrays) != total:
+            raise ErasureError(
+                f"expected {total} shard slots, got {len(arrays)}")
+        arrays = list(arrays)
+        present = tuple(i for i, a in enumerate(arrays) if a is not None)
+        if len(present) == total:
+            return arrays
+        if len(present) < d:
+            raise ErasureError(
+                f"too few shards present: {len(present)} < {d}")
+        limit = d if data_only else total
+        wanted = tuple(i for i in range(limit) if arrays[i] is None)
+        if not wanted:
+            return arrays
+        size = len(arrays[present[0]])
+        # Validate before coalescing: a malformed request must fail alone,
+        # not poison the whole group it would have joined.
+        for i in present[1:]:
+            if len(arrays[i]) != size:
+                raise ErasureError("shards must be of equal length")
+        key = (d, p, present, wanted, size, code)
+        return await self._submit(key, arrays)
+
+    def _run_group(self, key: tuple, requests: list[list]) -> list[list]:
+        d, p, present, wanted, size, code = key
+        self.dispatches += 1
+        coder = get_coder(d, p, self.backend, code)
+        # stack straight into decode layout (the first d present rows,
+        # ascending) — one gather pass instead of a full [B, d+p, S]
+        # scatter followed by reconstruct_batch's row-pick copy
+        use = sorted(present)[:d]
+        picked = np.empty((len(requests), d, size), dtype=np.uint8)
+        for bi, arrays in enumerate(requests):
+            for j, i in enumerate(use):
+                picked[bi, j] = arrays[i]
+        rebuilt = coder.reconstruct_batch_picked(picked, list(present),
+                                                 list(wanted))
+        out: list[list] = []
+        for bi, arrays in enumerate(requests):
+            filled = list(arrays)
+            for wi, i in enumerate(wanted):
+                filled[i] = rebuilt[bi, wi]
+            out.append(filled)
+        return out
+
+
+class EncodeHashBatcher(_CoalescingBatcher):
+    """Batched encode+hash front-end for the ingest path.
+
+    One large file already batches its own parts (writer.py staging); this
+    batcher coalesces *across* concurrent writes — the many-small-objects
+    regime (e.g. parallel HTTP-gateway PUTs), where each write has a
+    single sub-batch part and per-dispatch overhead would dominate.
+    Grouped by (d, p, shard length).
+
+    Whether a group's batches are additionally merged into one
+    ``[ΣB, d, S]`` dispatch follows the backend's
+    ``prefers_merged_batches`` policy (see ``_run_group``): ``cuda`` and
+    ``torch`` merge, ``numpy`` runs the group's batches back-to-back
+    unmerged.
+    """
+
+    async def encode_hash(
+        self, d: int, p: int, stacked: np.ndarray, code: str = "rs",
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Async equivalent of ``ErasureCoder.encode_hash_batch`` for one
+        staged part batch ``stacked[B, d, S]``: returns
+        ``(parity[B, p, S], digests[B, d+p, 32])``.  ``code`` selects
+        the erasure code; batches only merge within a code."""
+        if stacked.ndim != 3 or stacked.shape[1] != d:
+            raise ErasureError(
+                f"expected stacked [B, {d}, S], got {stacked.shape}")
+        b, _, size = stacked.shape
+        if b == 0:
+            return (np.zeros((0, p, size), dtype=np.uint8),
+                    np.zeros((0, d + p, 32), dtype=np.uint8))
+        key = (d, p, size, code)
+        return await self._submit(key, stacked)
+
+    def _run_group(self, key: tuple, batches: list[np.ndarray]) -> list:
+        d, p, _size, code = key
+        coder = get_coder(d, p, self.backend, code)
+        # Merging pending batches into one [ΣB, d, S] dispatch costs a
+        # full extra memcpy (the concatenate).  The cuda backend earns it
+        # back in saved per-dispatch staging, and the torch backend's plain
+        # versions are vector ops over the whole batch whose SHA loop
+        # costs per block, not per row.  numpy loops over parts either
+        # way, so for it the copy is pure loss (the JAX package measured
+        # the merge halving its CPU ingest) — it runs unmerged.
+        merge = getattr(coder.backend, "prefers_merged_batches", False)
+        if not merge or len(batches) == 1:
+            # Unmerged batches are independent dispatches that happen to
+            # share a drain tick: a failure belongs to its own waiter
+            # only, and later batches in the group must still encode.
+            out = []
+            for b in batches:
+                self.dispatches += 1
+                try:
+                    out.append(coder.encode_hash_batch(b))
+                # re-raised at the owning waiter through _GroupItemError;
+                # other batches must proceed
+                except Exception as err:
+                    out.append(_GroupItemError(err))
+            return out
+        self.dispatches += 1
+        merged = np.concatenate(batches, axis=0)
+        parity, digests = coder.encode_hash_batch(merged)
+        out = []
+        lo = 0
+        for batch in batches:
+            hi = lo + batch.shape[0]
+            out.append((parity[lo:hi], digests[lo:hi]))
+            lo = hi
+        return out

@@ -1,0 +1,147 @@
+"""GF(2^8) matrix apply: the CUDA kernel's wrapper and its plain version.
+
+``apply_matrix(table, shards)`` computes the ``ErasureBackend.apply_matrix``
+contract, ``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``, on tensors:
+``table`` is ``to_device_matrix(mat, device)``, ``shards`` is uint8
+``[B, K, S]``, the result uint8 ``[B, R, S]``.
+
+* For a CUDA tensor it launches ``csrc/gf_apply.cu`` (the port of
+  ``chunky_bits_tpu/ops/pallas_kernels.py::_build_kernel``; its source
+  note gives the bound on an H100 and the design) or raises.
+* For a CPU tensor it runs ``apply_matrix_plain``, the port of
+  ``chunky_bits_tpu/ops/bitplane.py``: unpack bytes to bits, 0/1 products
+  summed in integers, mod 2, pack.  It computes the same bytes on any
+  device and is what the kernel is held against.
+
+``LAUNCHES`` counts kernel launches, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from chunky_bits_tpu_torch.errors import ErasureError
+from chunky_bits_tpu_torch.ops import gf256
+
+#: kernel launches made by ``apply_matrix`` in this process
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+
+#: device memory the plain version may use for one slab of parts
+_PLAIN_SLAB_BYTES = 1 << 30
+
+
+def expand_table(mat: np.ndarray) -> np.ndarray:
+    """uint8 ``[R, K, 8]`` with ``T[i, k, j] = mat[i, k] (x) 2^j``: the
+    columns of ``gf256.mul_bit_matrix(mat[i, k])`` as bytes.  ``T[..., 0]``
+    is ``mat`` itself."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    if mat.ndim != 2:
+        raise ErasureError(f"want a GF matrix [R, K], got {mat.shape}")
+    powers = np.array([1 << j for j in range(8)], dtype=np.intp)
+    return gf256.MUL_TABLE[mat[:, :, None], powers[None, None, :]]
+
+
+def to_device_matrix(mat: np.ndarray, device) -> torch.Tensor:
+    """The kernel's operand for a GF matrix ``[R, K]`` (the counterpart of
+    ``bitmajor_device_matrix``): ``expand_table(mat)`` as a uint8 tensor
+    on ``device``.  Takes the JAX package's matrices as they are."""
+    return torch.from_numpy(expand_table(mat)).to(device)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``[n, R, 8, S]`` of 0/1 (bit j at index j) -> uint8 ``[n, R, S]``."""
+    shifts = torch.arange(8, device=bits.device, dtype=torch.int16)
+    return (bits.to(torch.int16) << shifts[None, None, :, None]).sum(
+        dim=2).to(torch.uint8)
+
+
+def apply_matrix_plain(table: torch.Tensor,
+                       shards: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernel on any device: bit-matrix product
+    over GF(2) in integer arithmetic.  ``M2[i*8+b, k*8+j]`` is bit ``b``
+    of ``table[i, k, j]``; ``out_bits = (M2 @ bits(shards)) mod 2``, the
+    sum taken in int16 (at most 8K <= 2048 ones), then packed."""
+    r, k, _ = table.shape
+    n_parts, k2, s = shards.shape
+    if k2 != k:
+        raise ErasureError(f"matrix has {k} columns, shards {k2} rows")
+    out = torch.empty((n_parts, r, s), dtype=torch.uint8,
+                      device=shards.device)
+    if out.numel() == 0:
+        return out.zero_()
+    dev = shards.device
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+    m2 = ((table.to(dev)[:, None, :, :] >> shifts[None, :, None, None]) & 1)
+    m2 = m2.reshape(r * 8, k * 8).to(torch.int16)
+    slab = max(1, _PLAIN_SLAB_BYTES // max(1, s * (k * 8 + r * 8 * 4)))
+    for lo in range(0, n_parts, slab):
+        part = shards[lo:lo + slab]
+        bits = ((part[:, :, None, :] >> shifts[None, None, :, None]) & 1)
+        bits = bits.reshape(part.shape[0], k * 8, s).to(torch.int16)
+        acc = torch.zeros((part.shape[0], r * 8, s), dtype=torch.int16,
+                          device=dev)
+        for c in range(k * 8):
+            acc += m2[None, :, c, None] * bits[:, None, c, :]
+        out[lo:lo + slab] = _pack_bits(
+            (acc & 1).reshape(part.shape[0], r, 8, s))
+    return out
+
+
+def _check(table: torch.Tensor, shards: torch.Tensor) -> None:
+    if table.dtype != torch.uint8 or shards.dtype != torch.uint8:
+        raise ErasureError("table and shards must be uint8")
+    if table.ndim != 3 or table.shape[2] != 8:
+        raise ErasureError(f"want a table [R, K, 8], got {tuple(table.shape)}")
+    if shards.ndim != 3 or shards.shape[1] != table.shape[1]:
+        raise ErasureError(f"want shards [B, {table.shape[1]}, S], got "
+                           f"{tuple(shards.shape)}")
+
+
+def apply_matrix(table: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
+    """``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``: the kernel
+    for a CUDA tensor, the plain version for a CPU tensor.  B, R or S of
+    0 return an empty result without a launch."""
+    global LAUNCHES
+    _check(table, shards)
+    if shards.device.type == "cpu":
+        return apply_matrix_plain(table, shards)
+    if shards.device.type != "cuda" or table.device != shards.device:
+        raise ErasureError(f"gf_apply takes CUDA tensors on one device, got "
+                           f"{table.device} and {shards.device}")
+    r, k, _ = table.shape
+    b, _, s = shards.shape
+    out = torch.empty((b, r, s), dtype=torch.uint8, device=shards.device)
+    if out.numel() == 0:
+        return out
+    table = table.contiguous()
+    shards = shards.contiguous()
+    lib = _library()
+    with torch.cuda.device(shards.device):
+        stream = torch.cuda.current_stream(shards.device).cuda_stream
+        err = lib.cb_gf_apply(table.data_ptr(), shards.data_ptr(),
+                              out.data_ptr(), b, k, r, s, stream)
+    if err != 0:
+        raise ErasureError(f"gf_apply launch failed: "
+                           f"{lib.cb_gf_error_string(err).decode()}")
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    from chunky_bits_tpu_torch.ops import _build
+
+    lib = _build.load("gf_apply")
+    if lib.cb_gf_apply.argtypes is None:
+        lib.cb_gf_error_string.argtypes = [ctypes.c_int]
+        lib.cb_gf_error_string.restype = ctypes.c_char_p
+        lib.cb_gf_apply.restype = ctypes.c_int
+        lib.cb_gf_apply.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    return lib
