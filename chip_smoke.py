@@ -3,18 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc, at
-first use, into ``chunky_bits_tpu_torch/_build/``), holds each kernel
-byte for byte against its plain PyTorch version on the card, then drives
-the erasure plane's main path at the repo's geometry (d=10, p=4, 1 MiB
-chunks): ingest of 256 parts through ``ErasureCoder.encode_hash_batch``
-with host and device SHA, a degraded read with shards 0, 1, 12 and 13
-lost, and concurrent requests through both batchers.  Each of those paths
-runs with the kernels' launch counts set to 0 just before it, and must
-launch what its blocks and dispatches call for.  Then it holds each kernel
-against its plain version at the main path's shapes and times both beside
-the kernel's bound; the SHA bound counts the instructions of one
-compression, checked against the compiled loop (``cuobjdump -sass``).
+Builds the three kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
+at first use, into ``chunky_bits_tpu_torch/_build/``) and holds each byte
+for byte against its plain PyTorch version on the card; the packed GF
+kernel also against ``gf_apply`` and numpy at its gate's corners.  Then it
+drives the main path at the repo's geometry (d=10, p=4, 1 MiB chunks):
+
+* the erasure plane: ingest of 256 parts through
+  ``ErasureCoder.encode_hash_batch`` with host and device SHA, a degraded
+  read with shards 0, 1, 12 and 13 lost, and concurrent requests through
+  both batchers; once with the packed kernel off and once on, with the
+  same bytes;
+* the object codec: BASELINE.md config 2, a 10 GiB stream (plus a
+  777-byte tail part) through ``FileWriteBuilder`` over the void
+  destination, packed off and on, with equal file references; and a
+  ~1 GiB object over 14 ``path`` destinations in a temporary directory:
+  write, read, delete the chunk files of shards 0, 1, 12 and 13 of every
+  part, read again, verify, resilver, verify and read a third time, every
+  read byte-identical to the source.
+
+Each of those paths runs with the kernels' launch counts set to 0 just
+before it, and must launch what its blocks and dispatches call for.  Then
+it times each kernel at the main path's shape beside its plain version and
+its bound; the SHA bound counts the instructions of one compression,
+checked against the compiled loop (``cuobjdump -sass``).
 
 Every phase raises on failure; nothing is caught.  The last lines are a
 JSON object per kernel and ``{"ok": true, "device": {...}}``.  Without
@@ -211,6 +223,75 @@ def phase_kernels(torch, dev) -> None:
         f"equal to the plain version and hashlib")
 
 
+#: (d, p) of the packed kernel's gate corners and interior geometries
+PACKED_GEOMETRIES = ((10, 4), (3, 2), (15, 8), (8, 8), (1, 1), (15, 1),
+                     (1, 8), (12, 6))
+
+
+def phase_packed_kernel(torch, dev) -> None:
+    """The packed kernel against its plain version, K1 and numpy on the
+    card, byte-exact: every (d, p) above at S of 256, 512 and 4096 and B of
+    1, 2 and 3, encode and decode rows, random and all-0xFF shards, an
+    unaligned base pointer; a geometry outside the gate raises."""
+    from chunky_bits_tpu_torch.errors import ErasureError
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
+    from chunky_bits_tpu_torch.ops.backend import NumpyBackend
+
+    rng = np.random.default_rng(SEED + 3)
+    oracle = NumpyBackend()
+    cases = 0
+
+    def check(mat: np.ndarray, data: np.ndarray, x=None) -> np.ndarray:
+        nonlocal cases
+        table = gf_kernel.to_device_matrix(mat, dev)
+        if x is None:
+            x = torch.from_numpy(data).to(dev)
+        got = gf_kernel.apply_matrix_packed(table, x)
+        assert torch.equal(got, gf_kernel.apply_matrix_packed_plain(table, x))
+        assert torch.equal(got, gf_kernel.apply_matrix(table, x))
+        host = got.cpu().numpy()
+        assert np.array_equal(host, oracle.apply_matrix(mat, data)), (
+            mat.shape, data.shape)
+        cases += 1
+        return host
+
+    for d, p in PACKED_GEOMETRIES:
+        enc = matrix.build_encode_matrix(d, p)
+        for s in (256, 512, 4096):
+            for b in (1, 2, 3):
+                data = rng.integers(0, 256, (b, d, s), dtype=np.uint8)
+                parity = check(enc[d:], data)
+                if p >= 2 and d >= 2:
+                    lost = [0, d + p - 1]
+                    present = [i for i in range(d + p) if i not in lost][:d]
+                    full = np.concatenate([data, parity], axis=1)
+                    rebuilt = check(matrix.decode_matrix(enc, present, lost),
+                                    np.ascontiguousarray(full[:, present]))
+                    assert np.array_equal(rebuilt, full[:, lost])
+        ones = np.full((2, d, 512), 0xFF, dtype=np.uint8)
+        check(enc[d:], ones)
+    # dense decode rows at the main path's geometry, all-0xFF shards
+    enc = matrix.build_encode_matrix(D, P)
+    present = [i for i in range(D + P) if i not in LOST][:D]
+    dec = matrix.decode_matrix(enc, present, list(LOST))
+    check(dec, np.full((3, D, 4096), 0xFF, dtype=np.uint8))
+    # a base pointer off 16-byte alignment takes the byte path
+    data = rng.integers(0, 256, 3 * D * 4096 + 1, dtype=np.uint8)
+    buf = torch.from_numpy(data).to(dev)
+    check(enc[D:], data[1:].reshape(3, D, 4096), buf[1:].view(3, D, 4096))
+    for r, k, s in ((9, 10, 512), (4, 16, 512), (4, 10, 128)):
+        table = gf_kernel.to_device_matrix(np.ones((r, k), np.uint8), dev)
+        try:
+            gf_kernel.apply_matrix_packed(
+                table, torch.zeros((1, k, s), dtype=torch.uint8, device=dev))
+        except ErasureError:
+            continue
+        raise AssertionError(f"r={r} k={k} s={s} outside the gate launched")
+    torch.cuda.synchronize()
+    log(f"gf_apply_packed: {cases} cases equal to its plain version, "
+        f"gf_apply and numpy; 3 geometries outside the gate raised")
+
+
 def phase_ingest(coder, data: np.ndarray, device_sha: bool):
     """encode_hash_batch at full size on one route, twice (the first call
     also allocates the pinned staging)."""
@@ -319,11 +400,296 @@ def phase_batch_reconstruct(data: np.ndarray, parity: np.ndarray):
     return rec
 
 
+OBJECT_PARTS = 1024   # BASELINE.md config 2: a 10 GiB stream, nothing cut
+DISK_PARTS = 100      # the on-disk object: ~1 GiB (config 3's geometry)
+TAIL = 777            # bytes of the short last part of each object
+OBJECT_BATCH = 256    # bench.py config 2: batch, concurrency batch + 4,
+OBJECT_STAGE = 8      # stage 8, a shared batcher on a host pipeline
+
+
+#: bytes of the synthetic stream's blob: 16 parts and a prime number of
+#: bytes more, so no two parts of a stream start at one offset of the blob
+#: and content addressing finds no duplicate chunk to share
+BLOB_BYTES = 16 * D * CHUNK + 4099
+
+
+class CyclicSource:
+    """A seeded synthetic stream: ``total`` bytes cycling through one
+    random blob of ``BLOB_BYTES``, served through ``readinto`` (one copy
+    into the writer's staging, as a socket or pipe reader would)."""
+
+    def __init__(self, blob: bytes, total: int):
+        self.blob = memoryview(blob)
+        self.remaining = total
+        self.off = 0
+
+    async def read(self, n: int = -1) -> bytes:
+        mem = bytearray(min(n if n >= 0 else 1 << 20, self.remaining))
+        return bytes(mem[:await self.readinto(memoryview(mem))])
+
+    async def readinto(self, mem) -> int:
+        n = min(len(mem), self.remaining, len(self.blob) - self.off)
+        mem[:n] = self.blob[self.off:self.off + n]
+        self.off = (self.off + n) % len(self.blob)
+        self.remaining -= n
+        return n
+
+
+def source_slice(blob: bytes, lo: int, n: int) -> bytes:
+    """Bytes [lo, lo + n) of the cyclic stream over ``blob``."""
+    out = bytearray()
+    while n > 0:
+        off = lo % len(blob)
+        take = min(n, len(blob) - off)
+        out += blob[off:off + take]
+        lo += take
+        n -= take
+    return bytes(out)
+
+
+def recording_batchers():
+    """The two batchers, recording each dispatch's shape ``(B, r, k, S)``
+    so a path's kernel launches can be checked against its dispatches."""
+    from chunky_bits_tpu_torch.ops.batching import (EncodeHashBatcher,
+                                                    ReconstructBatcher)
+
+    class RecordingEncode(EncodeHashBatcher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.shapes: list[tuple] = []
+
+        def _encode(self, coder, stacked):
+            b, k, s = stacked.shape
+            self.shapes.append((b, coder.parity, k, s))
+            return super()._encode(coder, stacked)
+
+    class RecordingReconstruct(ReconstructBatcher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.shapes: list[tuple] = []
+
+        def _run_group(self, key, requests):
+            d, _p, _present, wanted, size, _code = key
+            self.shapes.append((len(requests), len(wanted), d, size))
+            return super()._run_group(key, requests)
+
+    return RecordingEncode, RecordingReconstruct
+
+
+def expected_gf(backend, shapes, packed: bool) -> dict:
+    """Launches of each GF kernel that dispatches of ``shapes`` call for:
+    one per block of the walk, on the packed kernel where ``packed`` is on
+    and the geometry is inside its gate."""
+    from chunky_bits_tpu_torch.ops import gf_kernel
+
+    want = {"gf_apply": 0, "gf_apply_packed": 0, "sha256_rows": 0}
+    for b, r, k, s in shapes:
+        blocks = -(-b // max(1, backend.max_block_bytes // (k * s)))
+        name = ("gf_apply_packed"
+                if packed and gf_kernel.packed_geometry_ok(r, k, s)
+                else "gf_apply")
+        want[name] += blocks
+    return want
+
+
+def object_builder(destination, batcher, pipeline):
+    from chunky_bits_tpu_torch.file import FileWriteBuilder
+
+    return (FileWriteBuilder().with_destination(destination)
+            .with_chunk_size(CHUNK).with_data_chunks(D).with_parity_chunks(P)
+            .with_concurrency(OBJECT_BATCH + 4)
+            .with_batch_parts(OBJECT_BATCH).with_stage_parts(OBJECT_STAGE)
+            .with_encode_batcher(batcher).with_host_pipeline(pipeline))
+
+
+def phase_object_ingest(blob: bytes, pipeline, packed: bool):
+    """BASELINE.md config 2 through the port's writer: the 10 GiB stream
+    plus a 777-byte tail part over the void destination; returns the
+    file reference, the batcher and the seconds it took."""
+    import asyncio
+
+    encode_cls, _ = recording_batchers()
+    total = OBJECT_PARTS * D * CHUNK + TAIL
+
+    async def drive():
+        batcher = encode_cls(max_batch=OBJECT_BATCH, host_pipeline=pipeline)
+        t0 = time.perf_counter()
+        ref = await object_builder(None, batcher, pipeline).write(
+            CyclicSource(blob, total))
+        dt = time.perf_counter() - t0
+        await batcher.aclose()
+        return ref, batcher, dt
+
+    ref, batcher, dt = asyncio.run(drive())
+    assert ref.length == total and len(ref.parts) == OBJECT_PARTS + 1
+    log(f"object ingest packed={packed}: {total / 2**30:.3f} GiB through "
+        f"FileWriteBuilder (void destination) in {dt:.2f} s, "
+        f"{gib_s(total, dt):.2f} GiB/s; {batcher.dispatches} dispatch(es) "
+        f"of {sorted({sh[0] for sh in batcher.shapes})} parts")
+    return ref, batcher
+
+
+def phase_object_ingest_warm(blob: bytes, pipeline) -> None:
+    """16 parts through the same builder, outside any counted path: the
+    walk's pinned staging and the host threads are allocated here."""
+    import asyncio
+
+    from chunky_bits_tpu_torch.ops.batching import EncodeHashBatcher
+
+    async def drive():
+        batcher = EncodeHashBatcher(max_batch=OBJECT_BATCH,
+                                    host_pipeline=pipeline)
+        await object_builder(None, batcher, pipeline).write(
+            CyclicSource(blob, 16 * D * CHUNK))
+        await batcher.aclose()
+
+    asyncio.run(drive())
+
+
+def check_object_ref(ref, blob: bytes) -> None:
+    """A sample of parts, the tail included, against the numpy oracle and
+    hashlib."""
+    from chunky_bits_tpu_torch.ops.backend import NumpyBackend, get_coder
+
+    coder = get_coder(D, P)
+    rng = np.random.default_rng(SEED + 5)
+    sample = sorted(rng.choice(OBJECT_PARTS, 4, replace=False).tolist())
+    for i in sample + [OBJECT_PARTS]:
+        length = D * CHUNK if i < OBJECT_PARTS else TAIL
+        shard = coder.shard_len(length)
+        raw = np.zeros(D * shard, dtype=np.uint8)
+        raw[:length] = np.frombuffer(
+            source_slice(blob, i * D * CHUNK, length), dtype=np.uint8)
+        data = raw.reshape(1, D, shard)
+        parity = NumpyBackend().apply_matrix(coder.parity_rows, data)
+        rows = np.concatenate([data, parity], axis=1)[0]
+        part = ref.parts[i]
+        assert part.chunksize == shard
+        got = [c.hash.value.digest for c in part.data + part.parity]
+        assert got == [hashlib.sha256(r).digest() for r in rows], i
+    log(f"object ingest: file references equal packed off and on; parts "
+        f"{sample} and the tail equal to numpy and hashlib")
+
+
+async def read_and_compare(builder, blob: bytes, total: int) -> None:
+    pos = 0
+    async for buf in builder.stream():
+        n = len(buf)
+        assert bytes(buf) == source_slice(blob, pos, n), pos
+        pos += n
+    assert pos == total, (pos, total)
+
+
+def phase_round_trip(blob: bytes, pipeline, backend, packed: bool,
+                     path) -> dict:
+    """A ~1 GiB object over 14 ``path`` destinations: write, read, lose
+    shards 0, 1, 12 and 13 of every part, read degraded, verify, resilver,
+    verify and read again.  Each step is a path of its own for the launch
+    counts; returns the launches each step calls for."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from chunky_bits_tpu_torch.file import (FileReadBuilder,
+                                            LocationsDestination)
+
+    encode_cls, reconstruct_cls = recording_batchers()
+    total = DISK_PARTS * D * CHUNK + TAIL
+    sfx = "_packed" if packed else ""
+    expected = {}
+
+    def timed(name, coro_fn, nbytes: int):
+        t0 = time.perf_counter()
+        out = path(name + sfx, lambda: asyncio.run(coro_fn()))
+        dt = time.perf_counter() - t0
+        log(f"  {name}: {dt:.2f} s, {gib_s(nbytes, dt):.2f} GiB/s")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="cb-smoke-") as root:
+        dirs = [os.path.join(root, f"d{i}") for i in range(D + P)]
+        for d in dirs:
+            os.mkdir(d)
+        dest = LocationsDestination(dirs)
+        free = shutil.disk_usage(root).free
+        log(f"object round trip packed={packed}: {total / 2**30:.3f} GiB "
+            f"over {len(dirs)} path destinations under {root} "
+            f"({free / 2**30:.1f} GiB free before)")
+
+        async def write():
+            batcher = encode_cls(max_batch=OBJECT_BATCH,
+                                 host_pipeline=pipeline)
+            ref = await object_builder(dest, batcher, pipeline).write(
+                CyclicSource(blob, total))
+            await batcher.aclose()
+            return ref, batcher
+
+        ref, enc = timed("object_write", write, total)
+        expected["object_write" + sfx] = expected_gf(backend, enc.shapes,
+                                                     packed)
+
+        async def read():
+            # a read takes any d of the d+p chunks at random, so a healthy
+            # part rebuilds its data rows whenever parity came first
+            batcher = reconstruct_cls()
+            await read_and_compare(FileReadBuilder(ref).with_batcher(batcher),
+                                   blob, total)
+            await batcher.aclose()
+            return batcher
+
+        rec = timed("object_read", read, total)
+        expected["object_read" + sfx] = expected_gf(backend, rec.shapes,
+                                                    packed)
+
+        lost = []
+        for part in ref.parts:
+            chunks = part.data + part.parity
+            for i in LOST:
+                lost.append(str(chunks[i].locations[0]))
+                os.remove(lost[-1])
+
+        rec = timed("object_degraded_read", read, total)
+        assert rec.dispatches > 0
+        expected["object_degraded_read" + sfx] = expected_gf(
+            backend, rec.shapes, packed)
+
+        t0 = time.perf_counter()
+        report = asyncio.run(ref.verify())
+        dt = time.perf_counter() - t0
+        missing = sorted(str(loc) for loc, _err
+                         in report.unavailable_locations())
+        assert missing == sorted(lost), "verify must name the lost chunks"
+        assert not report.invalid_locations() and not report.is_ideal()
+        log(f"  verify: {dt:.2f} s; {report}; exactly the {len(lost)} "
+            f"deleted chunks unavailable")
+
+        async def resilver():
+            batcher = reconstruct_cls()
+            rep = await ref.resilver(dest, batcher=batcher)
+            await batcher.aclose()
+            return rep, batcher
+
+        rep, rec = timed("object_resilver", resilver,
+                         len(ref.parts) * len(LOST) * CHUNK)
+        assert len(rep.new_locations()) == len(lost), str(rep)
+        assert not rep.failed_writes(), rep.failed_writes()
+        expected["object_resilver" + sfx] = expected_gf(backend, rec.shapes,
+                                                        packed)
+        clean = asyncio.run(ref.verify())
+        assert clean.is_ideal(), str(clean)
+        rec = timed("object_read_resilvered", read, total)
+        expected["object_read_resilvered" + sfx] = expected_gf(
+            backend, rec.shapes, packed)
+        log(f"  resilver: {rep}; verify after: {clean}; every read "
+            f"byte-identical to the source")
+    return expected
+
+
 def phase_timings(torch, dev, coder, data: np.ndarray,
                   parity: np.ndarray) -> list[dict]:
     """Each kernel at the main path's launch shape beside its plain
-    version and its bound.  No single PyTorch call computes either
-    function, so ``library_ms`` is null."""
+    version and its bound; the two GF kernels in turns (K1, K3, K3, K1).
+    No single PyTorch call computes any of the three functions, so
+    ``library_ms`` is null."""
     from chunky_bits_tpu_torch.ops import _build, gf_kernel, matrix, sha256
 
     b, s = KERNEL_PARTS, CHUNK
@@ -341,12 +707,35 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
     dec_plain = gf_kernel.apply_matrix_plain(t_dec, y)
     err = max(err, int((dec_got.int() - dec_plain.int()).abs().max()))
     del plain, dec_plain
-    ms = time_cuda(torch, lambda: gf_kernel.apply_matrix(t_enc, x))
-    ms_dec = time_cuda(torch, lambda: gf_kernel.apply_matrix(t_dec, y))
+    k3 = gf_kernel.apply_matrix_packed(t_enc, x)
+    k3_err = int((k3.int() - got.int()).abs().max())
+    k3_plain = gf_kernel.apply_matrix_packed_plain(t_enc, x)
+    k3_err = max(k3_err, int((k3.int() - k3_plain.int()).abs().max()))
+    k3_dec = gf_kernel.apply_matrix_packed(t_dec, y)
+    k3_dec_plain = gf_kernel.apply_matrix_packed_plain(t_dec, y)
+    k3_err = max(k3_err, int((k3_dec.int() - dec_got.int()).abs().max()),
+                 int((k3_dec.int() - k3_dec_plain.int()).abs().max()))
+    del k3, k3_plain, k3_dec, k3_dec_plain
+    kernel_ms = {"k1": [], "k3": [], "k1_dec": [], "k3_dec": []}
+    for order in (("k1", "k3"), ("k3", "k1")):
+        for which in order:
+            fn = (gf_kernel.apply_matrix if which == "k1"
+                  else gf_kernel.apply_matrix_packed)
+            kernel_ms[which].append(time_cuda(torch, lambda: fn(t_enc, x)))
+            kernel_ms[which + "_dec"].append(
+                time_cuda(torch, lambda: fn(t_dec, y)))
+    ms, ms_dec = (statistics.median(kernel_ms["k1"]),
+                  statistics.median(kernel_ms["k1_dec"]))
+    k3_ms, k3_ms_dec = (statistics.median(kernel_ms["k3"]),
+                        statistics.median(kernel_ms["k3_dec"]))
     plain_ms = time_cuda(torch, lambda: gf_kernel.apply_matrix_plain(t_enc, x),
                          reps=3)
     plain_ms_dec = time_cuda(
         torch, lambda: gf_kernel.apply_matrix_plain(t_dec, y), reps=3)
+    k3_plain_ms = time_cuda(
+        torch, lambda: gf_kernel.apply_matrix_packed_plain(t_enc, x), reps=3)
+    k3_plain_ms_dec = time_cuda(
+        torch, lambda: gf_kernel.apply_matrix_packed_plain(t_dec, y), reps=3)
     nbytes = b * D * s + b * P * s + t_enc.numel()
     ops = 2 * (8 * P) * (8 * D) * b * s  # the bit-plane product's int8 MACs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -365,6 +754,20 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
         f"({gf['bound_by']}: {nbytes / 1e9:.2f} GB); max_abs_err {err} "
         f"against the plain version (tolerance 0: integer arithmetic); no "
         f"single PyTorch call computes it")
+    packed = dict(gf, name="gf_apply_packed",
+                  source="chunky_bits_tpu_torch/csrc/gf_apply_packed.cu",
+                  replaces="chunky_bits_tpu/ops/pallas_kernels.py:157",
+                  max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
+                  decode_ms=k3_ms_dec, decode_plain_ms=k3_plain_ms_dec,
+                  gf_apply_ms=ms, gf_apply_decode_ms=ms_dec)
+    log(f"gf_apply_packed [{b}, {D}, {s}] -> [{b}, {P}, {s}]: encode "
+        f"{k3_ms:.3f} ms, 4-erasure decode {k3_ms_dec:.3f} ms (gf_apply "
+        f"{ms:.3f} / {ms_dec:.3f} ms in the same turns: "
+        f"{kernel_ms}); plain {k3_plain_ms:.1f} / {k3_plain_ms_dec:.1f} ms; "
+        f"bound {gf['bound_ms']:.3f} ms ({gf['bound_by']}; its int8 tensor "
+        f"work {ops:.3g} ops is {t_ops:.3f} ms); max_abs_err {k3_err} "
+        f"against its plain version and gf_apply (tolerance 0); no single "
+        f"PyTorch call computes it")
 
     par = got
     rows_n = b * (D + P)
@@ -408,7 +811,7 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
         f"the same rows, max_abs_err {sha_err} (tolerance 0: integer "
         f"arithmetic); all digests equal hashlib; no single PyTorch call "
         f"computes it")
-    return [gf, sha]
+    return [gf, packed, sha]
 
 
 def main() -> int:
@@ -419,31 +822,35 @@ def main() -> int:
         return 2
     from chunky_bits_tpu_torch.ops import gf_kernel, sha256
     from chunky_bits_tpu_torch.ops.backend import get_coder
+    from chunky_bits_tpu_torch.parallel.host_pipeline import HostPipeline
 
     dev = torch.device("cuda", 0)
     smi = phase_device(torch)
     phase_build()
     phase_kernels(torch, dev)
+    phase_packed_kernel(torch, dev)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     data = torch.randint(0, 256, (INGEST_PARTS, D, CHUNK), generator=gen,
                          dtype=torch.uint8, device=dev).cpu().numpy()
     coder = get_coder(D, P)
-    assert coder.backend.name == "cuda", coder.backend.name
+    be = coder.backend
+    assert be.name == "cuda", be.name
 
-    # each path of the main path runs with both counts set to 0 just
-    # before it and read just after, and must launch what it should
+    # each path runs with every count set to 0 just before it and read
+    # just after, and must launch what its blocks and dispatches call for
     counts: dict[str, dict[str, int]] = {}
 
     def path(name: str, fn, *args):
         gf_kernel.LAUNCHES = 0
+        gf_kernel.PACKED_LAUNCHES = 0
         sha256.LAUNCHES = 0
         out = fn(*args)
         counts[name] = {"gf_apply": gf_kernel.LAUNCHES,
+                        "gf_apply_packed": gf_kernel.PACKED_LAUNCHES,
                         "sha256_rows": sha256.LAUNCHES}
         return out
 
-    be = coder.backend
     walk = -(-INGEST_PARTS // (be.max_block_bytes // (D * CHUNK)))
     fused = -(-INGEST_PARTS // (be.max_fused_block_bytes
                                 // ((D + P) * CHUNK)))
@@ -464,6 +871,63 @@ def main() -> int:
         "batch_encode": {"gf_apply": enc.dispatches, "sha256_rows": 0},
         "batch_reconstruct": {"gf_apply": rec.dispatches, "sha256_rows": 0},
     }
+    # the same paths with the packed kernel: it takes every launch K1
+    # took (d=10 p=4 at 1 MiB is inside its gate), with the same bytes
+    be.packed = True
+    host_p = path("ingest_host_sha_packed", phase_ingest, coder, data, False)
+    dev_p = path("ingest_device_sha_packed", phase_ingest, coder, data, True)
+    for got in (host_p, dev_p):
+        assert np.array_equal(got[0], parity), "packed parity differs"
+        assert np.array_equal(got[1], digests), "packed digests differ"
+    path("degraded_read_packed", phase_degraded, coder, data, parity)
+    enc_p = path("batch_encode_packed", phase_batch_encode, data, parity,
+                 digests)
+    rec_p = path("batch_reconstruct_packed", phase_batch_reconstruct, data,
+                 parity)
+    be.packed = None
+    for name, dispatches in (("batch_encode", enc_p.dispatches),
+                             ("batch_reconstruct", rec_p.dispatches)):
+        expected[name + "_packed"] = {"gf_apply": dispatches}
+    for name in ("ingest_host_sha", "ingest_device_sha", "degraded_read"):
+        expected[name + "_packed"] = dict(expected[name])
+    for name in list(expected):
+        want = expected[name]
+        want.setdefault("sha256_rows", 0)
+        k1 = want.pop("gf_apply")
+        packed_path = name.endswith("_packed")
+        want["gf_apply"] = 0 if packed_path else k1
+        want["gf_apply_packed"] = k1 if packed_path else 0
+    log("erasure plane with the packed kernel: parity and digests on both "
+        "ingest routes, rebuilt rows and batcher results equal to the "
+        "packed-off run")
+
+    # the object codec: BASELINE.md config 2 (10 GiB) through the writer,
+    # packed off and on, then a ~1 GiB object round trip on disk
+    blob = np.random.default_rng(SEED + 4).integers(
+        0, 256, BLOB_BYTES, dtype=np.uint8).tobytes()
+    refs = []
+    for packed in (False, True):
+        be.packed = packed
+        pipeline = HostPipeline()
+        phase_object_ingest_warm(blob, pipeline)
+        name = "object_ingest" + ("_packed" if packed else "")
+        ref, batcher = path(name, phase_object_ingest, blob, pipeline,
+                            packed)
+        log(f"  host pipeline: {pipeline.stats()}")
+        pipeline.close()
+        expected[name] = expected_gf(be, batcher.shapes, packed)
+        refs.append(ref)
+    be.packed = None
+    assert refs[0].to_obj() == refs[1].to_obj(), "references differ"
+    check_object_ref(refs[0], blob)
+    del refs
+    pipeline = HostPipeline()
+    for packed in (False, True):
+        be.packed = packed
+        expected.update(phase_round_trip(blob, pipeline, be, packed, path))
+    be.packed = None
+    pipeline.close()
+
     for name, got in counts.items():
         log(f"launches on {name}: {got}")
     assert counts == expected, (counts, expected)

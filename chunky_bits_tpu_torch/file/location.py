@@ -1,0 +1,466 @@
+"""Uniform storage addressing (the port of
+``chunky_bits_tpu/file/location.py``).
+
+As the reference's ``Location``, an address is a plain string with an
+optional ``(start,len)`` range prefix.  The port serves the ``path``
+scheme: a local filesystem path (or ``file://`` URL), with the verbs
+read (ranges, zero-extension), a streaming reader, a zero-copy page-cache
+view, write (conflict policy, atomic publication), subfile write
+(content-addressed children), delete, exists and len.  Filesystem calls
+hop to threads.
+
+Not yet ported, and refused by ``Location.parse`` with a
+``LocationParseError`` that says so: ``http(s)://`` (needs aiohttp),
+``slab:`` (the packed slab store) and ``sim:`` (the simulator's fabric).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import errno
+import io
+import os
+import re
+from dataclasses import dataclass, field, replace
+from typing import Optional
+from urllib.parse import urlsplit
+
+from chunky_bits_tpu_torch.errors import (
+    LocationError,
+    LocationParseError,
+    ShardError,
+    WriteToRangeError,
+)
+from chunky_bits_tpu_torch.file.hashing import AnyHash
+from chunky_bits_tpu_torch.file.profiler import Profiler
+from chunky_bits_tpu_torch.utils import aio
+from chunky_bits_tpu_torch.utils import clock as _clock
+from chunky_bits_tpu_torch.utils import fsio as _fsio
+
+OVERWRITE = "overwrite"
+IGNORE = "ignore"
+
+#: schemes of the JAX package that the port does not serve yet
+_NOT_PORTED = (("http://", "http"), ("https://", "http"), ("slab:", "slab"),
+               ("sim:", "sim"))
+
+
+@dataclass(frozen=True)
+class Range:
+    """Byte range view over a location (src/file/location.rs:550-603)."""
+
+    start: int = 0
+    length: Optional[int] = None
+    extend_zeros: bool = False
+
+    def is_specified(self) -> bool:
+        return self.start != 0 or self.length is not None
+
+    def __str__(self) -> str:
+        if self.length is not None and not self.extend_zeros:
+            return f"({self.start},{self.length})"
+        if self.length is not None and self.extend_zeros:
+            return f"({self.start},0{self.length})"
+        return f"({self.start},)"
+
+    @staticmethod
+    def from_str_prefix(s: str) -> tuple["Range", str]:
+        """Split a leading ``(start,len)`` prefix off a location string; a
+        length with a leading ``0`` marks zero-extension
+        (location.rs:581-602)."""
+        if s.startswith("("):
+            inner, sep, suffix = s[1:].partition(")")
+            if sep:
+                left, comma, right = inner.partition(",")
+                if comma:
+                    try:
+                        start = int(left)
+                        length = int(right) if right else None
+                    except ValueError:
+                        return Range(), s
+                    if right and (not right.lstrip("-").isdigit()):
+                        return Range(), s
+                    return (
+                        Range(start, length, right.startswith("0")),
+                        suffix,
+                    )
+        return Range(), s
+
+
+class LocationContext:
+    """Per-operation context: conflict policy and an optional profiler
+    (src/file/location.rs:447-510)."""
+
+    def __init__(self, on_conflict: str = OVERWRITE,
+                 profiler: Optional[Profiler] = None):
+        if on_conflict not in (OVERWRITE, IGNORE):
+            raise ValueError(f"invalid on_conflict {on_conflict!r}")
+        self.on_conflict = on_conflict
+        self.profiler = profiler
+
+    def but_with(self, *, on_conflict: Optional[str] = None,
+                 profiler: Optional[Profiler] = None) -> "LocationContext":
+        return LocationContext(
+            on_conflict=on_conflict or self.on_conflict,
+            profiler=profiler if profiler is not None else self.profiler)
+
+
+_DEFAULT_CONTEXT = LocationContext()
+
+
+def default_context() -> LocationContext:
+    return _DEFAULT_CONTEXT
+
+
+#: atomic local publication stages "<target>.tmp.<pid>.<8-hex>" and
+#: replaces the target with it
+_PUBLISH_TEMP_RE = re.compile(r"\.tmp\.\d+\.[0-9a-f]{8}$")
+
+
+def publish_temp_name(target: str) -> str:
+    """The staging path for an atomic publication of ``target``."""
+    return f"{target}.tmp.{os.getpid()}.{os.urandom(4).hex()}"
+
+
+def is_publish_temp(name: str) -> bool:
+    """True when ``name`` is an atomic-publication temp file: invisible to
+    readers until renamed, so an old one is a crashed writer's leak."""
+    return _PUBLISH_TEMP_RE.search(name) is not None
+
+
+async def _publish_atomically(target: str, write_body) -> int:
+    """Local write published atomically where possible
+    (``write_body(path) -> int`` lands the bytes at the given path).
+
+    Regular-file targets are written to a sibling temp file and replaced
+    in, so a concurrent reader (page-cache views from ``read_view``
+    included) never sees a torn or truncated file.  Durability follows
+    the filesystem's rename (flush, no fsync, as the reference).  Symlinks
+    and special files are written directly, and so is a target whose
+    directory refuses the temp file (EACCES/EPERM/EROFS).  An existing
+    file's permission bits carry over.  The chmod+replace and the temp
+    reaping stay synchronous: a suspension point between the write and
+    the rename would let a cancellation race the reap against the swap."""
+    direct, mode = await asyncio.to_thread(_publish_precheck, target)
+    if direct:
+        return await write_body(target)
+    tmp = publish_temp_name(target)
+    try:
+        total = await write_body(tmp)
+        if mode is not None:
+            os.chmod(tmp, mode)
+        _fsio.replace(tmp, target)
+        return total
+    except OSError as err:
+        created = _reap_publish_temp(tmp)
+        if not created and err.errno in (errno.EACCES, errno.EPERM,
+                                         errno.EROFS):
+            return await write_body(target)
+        raise
+    except BaseException:
+        _reap_publish_temp(tmp)
+        raise
+
+
+def _publish_precheck(target: str) -> tuple[bool, Optional[int]]:
+    """(write directly?, mode to keep) for one publication."""
+    if os.path.islink(target) or (
+            os.path.exists(target) and not os.path.isfile(target)):
+        return True, None
+    try:
+        return False, os.stat(target).st_mode & 0o7777
+    except OSError:
+        return False, None
+
+
+def _reap_publish_temp(tmp: str) -> bool:
+    """Remove a staging temp; True when it existed."""
+    created = os.path.exists(tmp)
+    try:
+        _fsio.unlink(tmp)
+    except OSError:
+        pass
+    return created
+
+
+async def _atomic_publish(target: str, data) -> None:
+    def _write(path: str) -> int:
+        with _fsio.open(path, "wb") as f:
+            f.write(data)
+            f.flush()
+        return len(data)
+
+    await _publish_atomically(
+        target, lambda path: asyncio.to_thread(_write, path))
+
+
+class _ProfiledReader:
+    """Counts streamed bytes and logs exactly one profiler entry when the
+    stream ends: EOF, error, or early close."""
+
+    def __init__(self, base, profiler: Profiler, location: "Location",
+                 start: float):
+        self._base = base
+        self._profiler = profiler
+        self._location = location
+        self._start = start
+        self._total = 0
+        self._logged = False
+
+    def _log(self, ok: bool, err: Optional[str] = None) -> None:
+        if not self._logged:
+            self._logged = True
+            self._profiler.log_read(ok, err, self._location, self._total,
+                                    self._start)
+
+    async def read(self, n: int = -1) -> bytes:
+        try:
+            data = await self._base.read(n)
+        except Exception as err:
+            self._log(False, str(err))
+            raise
+        if data:
+            self._total += len(data)
+        else:
+            self._log(True)
+        return data
+
+    async def close(self) -> None:
+        self._log(True)
+        await aio.close_reader(self._base)
+
+
+@dataclass(frozen=True, order=True)
+class Location:
+    """A storage address; value semantics, string serde."""
+
+    kind: str  # "local": the one scheme ported so far
+    target: str  # filesystem path
+    range: Range = field(default_factory=Range)
+
+    # ---- construction / parsing ----
+
+    @staticmethod
+    def parse(s: str) -> "Location":
+        rng, rest = Range.from_str_prefix(s)
+        for prefix, scheme in _NOT_PORTED:
+            if rest.startswith(prefix):
+                raise LocationParseError(
+                    f"{scheme} locations are not yet ported: {rest!r}")
+        if rest.startswith("file://"):
+            path = urlsplit(rest).path
+            if not path.startswith("/"):
+                raise LocationParseError("file:// path must be absolute")
+            return Location("local", path, rng)
+        if "://" in rest.split("/")[0]:
+            raise LocationParseError(f"invalid location scheme: {rest!r}")
+        if not rest:
+            raise LocationParseError("empty location")
+        return Location("local", rest, rng)
+
+    @staticmethod
+    def local(path: str, rng: Optional[Range] = None) -> "Location":
+        return Location("local", str(path), rng or Range())
+
+    def __str__(self) -> str:
+        if self.range.is_specified():
+            return f"{self.range}{self.target}"
+        return self.target
+
+    def is_local(self) -> bool:
+        return self.kind == "local"
+
+    def with_range(self, rng: Range) -> "Location":
+        return replace(self, range=rng)
+
+    # ---- hierarchy (src/file/location.rs:407-436) ----
+
+    def child(self, name: str) -> "Location":
+        return Location(self.kind, os.path.join(self.target, name))
+
+    def is_child_of(self, other: "Location") -> bool:
+        if self.range.is_specified() or self.kind != other.kind:
+            return False
+        parent = os.path.dirname(self.target)
+        return parent == other.target.rstrip("/") or parent == other.target
+
+    def is_parent_of(self, other: "Location") -> bool:
+        return other.is_child_of(self)
+
+    # ---- read path ----
+
+    async def reader(self, cx: Optional[LocationContext] = None
+                     ) -> aio.AsyncByteReader:
+        """A streaming reader honoring the range
+        (src/file/location.rs:115-183); with a profiler, one entry per
+        stream at EOF, close or error."""
+        cx = cx or default_context()
+        start = _clock.monotonic()
+        try:
+            base = await self._open_reader()
+        except LocationError as err:
+            if cx.profiler is not None:
+                cx.profiler.log_read(False, str(err), self, 0, start)
+            raise
+        if cx.profiler is None:
+            return base
+        return _ProfiledReader(base, cx.profiler, self, start)
+
+    async def _open_reader(self) -> aio.AsyncByteReader:
+        rng = self.range
+
+        def _open_local():
+            f = open(self.target, "rb")
+            try:
+                if rng.start:
+                    f.seek(rng.start)
+            except BaseException:
+                f.close()
+                raise
+            return f
+
+        try:
+            f = await aio.open_in_thread(_open_local, lambda h: h.close())
+        except OSError as err:
+            raise LocationError(str(err)) from err
+        base = aio.FileReader(self.target, fileobj=f)
+        if rng.length is None:
+            return base
+        if rng.extend_zeros:
+            return aio.ZeroExtendReader(base, rng.length)
+        return aio.TakeReader(base, rng.length)
+
+    async def read(self, cx: Optional[LocationContext] = None) -> bytes:
+        """Read the full (ranged) content; profiler-hooked
+        (src/file/location.rs:95-113)."""
+        cx = cx or default_context()
+        start = _clock.monotonic()
+        try:
+            reader = await self._open_reader()
+            try:
+                chunks = []
+                while True:
+                    data = await reader.read(1 << 20)
+                    if not data:
+                        break
+                    chunks.append(data)
+                out = b"".join(chunks)
+            finally:
+                # EOF does not release the file: close it, or every
+                # whole-buffer read leaks an fd
+                await aio.close_reader(reader)
+        except LocationError as err:
+            if cx.profiler is not None:
+                cx.profiler.log_read(False, str(err), self, 0, start)
+            raise
+        if cx.profiler is not None:
+            cx.profiler.log_read(True, None, self, len(out), start)
+        return out
+
+    async def read_view(self, cx: Optional[LocationContext] = None
+                        ) -> Optional[memoryview]:
+        """Zero-copy page-cache view of the (optionally ranged) file, or
+        ``None`` where the fast path does not apply: an active profiler
+        (which must see the generic read), ``$CHUNKY_BITS_TORCH_NO_MMAP``,
+        a range reaching past the end (the generic path owns short-read
+        and zero-extension semantics), or an unmappable file.
+
+        The read-only view keeps its map alive for its own lifetime.
+        Chunk files are published by rename, so a re-write of the same
+        location never invalidates a view already taken; a file truncated
+        by an outside writer can still SIGBUS a held view."""
+        mapper = self.read_view_mapper(cx)
+        if mapper is None:
+            return None
+        return await asyncio.to_thread(mapper)
+
+    def read_view_mapper(self, cx: Optional[LocationContext] = None):
+        """The synchronous mapper behind :meth:`read_view`, or ``None``
+        when the zero-copy path does not apply; a caller already in a
+        worker thread runs it there and fuses its own work (hash
+        verification) into the same hop."""
+        cx = cx or default_context()
+        if cx.profiler is not None or aio.mmap_opted_out():
+            return None
+        rng = self.range
+
+        def _map() -> Optional[memoryview]:
+            import mmap
+
+            try:
+                with open(self.target, "rb") as f:
+                    mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+            except (OSError, ValueError, io.UnsupportedOperation):
+                return None
+            start = rng.start or 0
+            end = len(mm) if rng.length is None else start + rng.length
+            if (start < 0 or (rng.length is not None and rng.length < 0)
+                    or end > len(mm) or start > len(mm)):
+                # negative or short ranges: the generic path owns them
+                mm.close()
+                return None
+            return memoryview(mm)[start:end]
+
+        return _map
+
+    # ---- write path ----
+
+    async def write(self, data: bytes,
+                    cx: Optional[LocationContext] = None) -> None:
+        """Whole-buffer write with the conflict policy, published
+        atomically; profiler-hooked (src/file/location.rs:185-244)."""
+        cx = cx or default_context()
+        if self.range.is_specified():
+            raise WriteToRangeError()
+        start = _clock.monotonic()
+        try:
+            if not (cx.on_conflict == IGNORE and await self.file_exists(cx)):
+                try:
+                    await _atomic_publish(self.target, data)
+                except OSError as err:
+                    raise LocationError(str(err)) from err
+        except LocationError as err:
+            if cx.profiler is not None:
+                cx.profiler.log_write(False, str(err), self, len(data), start)
+            raise
+        if cx.profiler is not None:
+            cx.profiler.log_write(True, None, self, len(data), start)
+
+    async def write_subfile(self, name: str, data: bytes,
+                            cx: Optional[LocationContext] = None
+                            ) -> "Location":
+        """Write a named child (a content-addressed chunk) under this
+        location and return it (src/file/location.rs:311-343)."""
+        target = self.child(name)
+        try:
+            await target.write(data, cx)
+        except LocationError as err:
+            raise ShardError(str(err), location=target) from err
+        return target
+
+    # ---- management ----
+
+    async def delete(self, cx: Optional[LocationContext] = None) -> None:
+        try:
+            await asyncio.to_thread(_fsio.unlink, self.target)
+        except OSError as err:
+            raise LocationError(str(err)) from err
+
+    async def file_exists(self, cx: Optional[LocationContext] = None) -> bool:
+        return await asyncio.to_thread(os.path.exists, self.target)
+
+    async def file_len(self, cx: Optional[LocationContext] = None) -> int:
+        try:
+            st = await asyncio.to_thread(os.stat, self.target)
+        except OSError as err:
+            raise LocationError(str(err)) from err
+        return st.st_size
+
+    # ---- shard writing (ShardWriter for Location,
+    #      src/file/location.rs:605-616) ----
+
+    async def write_shard(self, hash_: AnyHash, data: bytes,
+                          cx: Optional[LocationContext] = None
+                          ) -> list["Location"]:
+        loc = await self.write_subfile(str(hash_), data, cx)
+        return [loc]

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from chunky_bits_tpu_torch.errors import ErasureError
-from chunky_bits_tpu_torch.ops import gf256, gf_kernel, matrix, sha256
+from chunky_bits_tpu_torch.ops import gf256, gf_kernel, matrix
 
 
 def as_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -80,31 +80,55 @@ class NumpyBackend(ErasureBackend):
         return out
 
 
+def packed_enabled(packed: Optional[bool]) -> bool:
+    """The ``packed`` knob of the torch and cuda backends: ``packed`` as
+    set, or, when it is None, ``$CHUNKY_BITS_TORCH_PACKED_KERNEL`` read at
+    each dispatch (off when unset, as in the JAX package).  Where it is
+    on, the geometries inside ``gf_kernel.packed_geometry_ok`` take the
+    packed kernel (``gf_kernel.apply_selected``)."""
+    if packed is not None:
+        return bool(packed)
+    from chunky_bits_tpu_torch.cluster.tunables import (PACKED_KERNEL_ENV,
+                                                        env_flag)
+
+    return env_flag(PACKED_KERNEL_ENV)
+
+
 class TorchBackend(ErasureBackend):
-    """The kernels' plain PyTorch versions on the CPU: the same two steps
-    as the ``cuda`` backend's fused ingest, parity then the digests of
-    all d+p rows, computed by ``apply_matrix_plain`` and
-    ``sha256_rows_plain``."""
+    """The kernels' plain PyTorch versions on the CPU, on the ``cuda``
+    backend's default ingest route: parity from the plain version of the
+    GF kernel that ``packed`` selects, and the digests of all d+p rows
+    from hashlib on the host."""
 
     name = "torch"
 
     #: batchers merge concurrent requests: the plain versions are vector
-    #: ops over the whole batch, and the SHA loop costs per block, not
-    #: per row, so one merged call does the work of many
+    #: ops over the whole batch, so one merged call does the work of many
     prefers_merged_batches = True
 
+    def __init__(self, packed: Optional[bool] = None) -> None:
+        #: read through ``packed_enabled`` at each dispatch
+        self.packed = packed
+
+    def _apply(self, mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+        return gf_kernel.apply_selected(
+            gf_kernel.to_device_matrix(mat, "cpu"), data,
+            packed_enabled(self.packed))
+
     def apply_matrix(self, mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
-        table = gf_kernel.to_device_matrix(mat, "cpu")
-        return gf_kernel.apply_matrix(table, as_tensor(shards)).numpy()
+        return self._apply(mat, as_tensor(shards)).numpy()
 
     def encode_and_hash(
         self, mat: np.ndarray, shards: np.ndarray
     ) -> tuple[np.ndarray, np.ndarray]:
         data = as_tensor(shards)
-        parity = gf_kernel.apply_matrix(
-            gf_kernel.to_device_matrix(mat, "cpu"), data)
-        digests = sha256.sha256_parts(data, parity)
-        return parity.numpy(), digests.numpy()
+        parity = self._apply(mat, data).numpy()
+        b, k, _ = shards.shape
+        digests = np.empty((b, k + parity.shape[1], 32), dtype=np.uint8)
+        hash_rows = row_hasher()
+        hash_rows(shards, digests[:, :k])
+        hash_rows(parity, digests[:, k:])
+        return parity, digests
 
 
 _REGISTRY: dict[str, ErasureBackend] = {}

@@ -15,9 +15,8 @@ next batch, so batching emerges from concurrency without added latency: a
 lone request is dispatched immediately.
 
 The port of ``chunky_bits_tpu/ops/batching.py`` with the same keys and
-merge policy.  Not ported yet: the ``host_pipeline`` argument and the
-``submit_apply`` feed-ahead route, which need the host pipeline and the
-dispatch pipeline (ROADMAP Queue A, item 6).
+merge policy.  Not ported yet: the ``submit_apply`` feed-ahead route, which
+needs the dispatch pipeline (ROADMAP Queue A, item 6).
 """
 
 from __future__ import annotations
@@ -211,7 +210,17 @@ class EncodeHashBatcher(_CoalescingBatcher):
     ``prefers_merged_batches`` policy (see ``_run_group``): ``cuda`` and
     ``torch`` merge, ``numpy`` runs the group's batches back-to-back
     unmerged.
+
+    ``host_pipeline`` (a ``parallel.host_pipeline.HostPipeline``) runs
+    each dispatch's host compute through the shared multi-core executor
+    instead of one direct ``coder.encode_hash_batch`` call; None keeps the
+    direct call.
     """
+
+    def __init__(self, backend: Optional[str] = None, max_batch: int = 128,
+                 host_pipeline: Optional[object] = None):
+        super().__init__(backend, max_batch)
+        self.host_pipeline = host_pipeline
 
     async def encode_hash(
         self, d: int, p: int, stacked: np.ndarray, code: str = "rs",
@@ -229,6 +238,12 @@ class EncodeHashBatcher(_CoalescingBatcher):
                     np.zeros((0, d + p, 32), dtype=np.uint8))
         key = (d, p, size, code)
         return await self._submit(key, stacked)
+
+    def _encode(self, coder, stacked: np.ndarray):
+        """The per-dispatch codec call for one (possibly merged) batch."""
+        if self.host_pipeline is not None:
+            return self.host_pipeline.encode_hash_sync(coder, stacked)
+        return coder.encode_hash_batch(stacked)
 
     def _run_group(self, key: tuple, batches: list[np.ndarray]) -> list:
         d, p, _size, code = key
@@ -249,7 +264,7 @@ class EncodeHashBatcher(_CoalescingBatcher):
             for b in batches:
                 self.dispatches += 1
                 try:
-                    out.append(coder.encode_hash_batch(b))
+                    out.append(self._encode(coder, b))
                 # re-raised at the owning waiter through _GroupItemError;
                 # other batches must proceed
                 except Exception as err:
@@ -257,7 +272,7 @@ class EncodeHashBatcher(_CoalescingBatcher):
             return out
         self.dispatches += 1
         merged = np.concatenate(batches, axis=0)
-        parity, digests = coder.encode_hash_batch(merged)
+        parity, digests = self._encode(coder, merged)
         out = []
         lo = 0
         for batch in batches:

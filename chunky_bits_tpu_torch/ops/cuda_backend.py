@@ -20,7 +20,11 @@ lands, so callers overlap host work (parity hashing) with the rest.
 Device SHA is opt-in: the constructor's ``device_sha`` (an attribute, so
 it may be changed later), or ``$CHUNKY_BITS_TORCH_DEVICE_SHA`` when it is
 None.  The variable enables it only when it is exactly "1", as in the JAX
-package.
+package.  The ``packed`` attribute, shaped the same way, selects the
+field-multiplexed GF kernel (``csrc/gf_apply_packed.cu``) for both routes
+at the geometries it takes (``backend.packed_enabled``).  With it on and
+the geometry inside the gate, a block launches that kernel or raises; the
+gate is the only route to ``gf_apply``, as in the JAX package.
 
 What is not ported, on purpose: ``await_device_init``,
 ``run_bounded_dispatch``, ``_CallbackGate`` and the sticky CPU fallback.
@@ -44,7 +48,7 @@ import torch
 from chunky_bits_tpu_torch.errors import ErasureError
 from chunky_bits_tpu_torch.ops import gf_kernel, sha256
 from chunky_bits_tpu_torch.ops.backend import (ErasureBackend, as_tensor,
-                                               row_hasher)
+                                               packed_enabled, row_hasher)
 
 
 class CudaBackend(ErasureBackend):
@@ -67,15 +71,18 @@ class CudaBackend(ErasureBackend):
     #: decode matrices are one per erasure pattern; bound the device cache
     max_cached_matrices = 256
 
-    def __init__(self, device_sha: Optional[bool] = None) -> None:
+    def __init__(self, device_sha: Optional[bool] = None,
+                 packed: Optional[bool] = None) -> None:
         if not torch.cuda.is_available():
             raise ErasureError(
                 "CUDA is not available: the cuda backend runs only on the "
                 "card (ask for backend 'torch' or 'numpy' on the CPU)")
         self.device = torch.device("cuda", torch.cuda.current_device())
         self.device_sha = device_sha
-        # build both kernels now: a failed build fails backend resolution
-        gf_kernel._library()
+        self.packed = packed
+        # build every kernel now: a failed build fails backend resolution
+        gf_kernel._library("gf_apply")
+        gf_kernel._library("gf_apply_packed")
         sha256._library()
         self._tables: OrderedDict[bytes, torch.Tensor] = OrderedDict()
         #: one walk at a time: the streams and staging are shared
@@ -121,9 +128,11 @@ class CudaBackend(ErasureBackend):
                 on_block(0, out)
             return out
         table = self._table(mat)
+        packed = packed_enabled(self.packed)
         block = max(1, self.max_block_bytes // (k * s))
         (out,) = self._walk(
-            shards, block, lambda dev: (gf_kernel.apply_matrix(table, dev),),
+            shards, block,
+            lambda dev: (gf_kernel.apply_selected(table, dev, packed),),
             [(r, s)], on_block)
         return out
 
@@ -137,9 +146,10 @@ class CudaBackend(ErasureBackend):
         r = mat.shape[0]
         if b > 0 and r > 0 and s > 0 and self.device_sha_enabled():
             table = self._table(mat)
+            packed = packed_enabled(self.packed)
 
             def fused(dev: torch.Tensor) -> tuple[torch.Tensor, ...]:
-                parity = gf_kernel.apply_matrix(table, dev)
+                parity = gf_kernel.apply_selected(table, dev, packed)
                 return parity, sha256.sha256_parts(dev, parity)
 
             block = max(1, self.max_fused_block_bytes // ((k + r) * s))

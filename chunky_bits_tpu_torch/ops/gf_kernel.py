@@ -13,7 +13,16 @@ contract, ``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``, on tensors:
   summed in integers, mod 2, pack.  It computes the same bytes on any
   device and is what the kernel is held against.
 
-``LAUNCHES`` counts kernel launches, and nothing else.
+``apply_matrix_packed(table, shards)`` computes the same bytes with the
+field-multiplexed kernel, ``csrc/gf_apply_packed.cu`` (the port of
+``pallas_kernels.py::_build_packed_kernel``), on the int8 tensor cores; its
+plain version is ``apply_matrix_packed_plain``.  It takes only the
+geometries of ``packed_geometry_ok`` and raises on any other.
+``apply_selected`` is the one place that chooses between the two kernels,
+as ``apply_m2_bitmajor`` does in the JAX package.
+
+``LAUNCHES`` and ``PACKED_LAUNCHES`` count the two kernels' launches, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from chunky_bits_tpu_torch.ops import gf256
 
 #: kernel launches made by ``apply_matrix`` in this process
 LAUNCHES = 0
+#: kernel launches made by ``apply_matrix_packed`` in this process
+PACKED_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 #: device memory the plain version may use for one slab of parts
@@ -102,16 +113,13 @@ def _check(table: torch.Tensor, shards: torch.Tensor) -> None:
                            f"{tuple(shards.shape)}")
 
 
-def apply_matrix(table: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
-    """``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor.  B, R or S of
-    0 return an empty result without a launch."""
-    global LAUNCHES
-    _check(table, shards)
-    if shards.device.type == "cpu":
-        return apply_matrix_plain(table, shards)
+def _launch(name: str, table: torch.Tensor,
+            shards: torch.Tensor) -> torch.Tensor:
+    """Launch kernel ``name`` (a source of ``csrc/``) on CUDA tensors and
+    return its output; raises on a failed build or launch.  An empty
+    output is returned without a launch."""
     if shards.device.type != "cuda" or table.device != shards.device:
-        raise ErasureError(f"gf_apply takes CUDA tensors on one device, got "
+        raise ErasureError(f"{name} takes CUDA tensors on one device, got "
                            f"{table.device} and {shards.device}")
     r, k, _ = table.shape
     b, _, s = shards.shape
@@ -120,28 +128,128 @@ def apply_matrix(table: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
         return out
     table = table.contiguous()
     shards = shards.contiguous()
-    lib = _library()
+    fn, error_string = _library(name)
     with torch.cuda.device(shards.device):
         stream = torch.cuda.current_stream(shards.device).cuda_stream
-        err = lib.cb_gf_apply(table.data_ptr(), shards.data_ptr(),
-                              out.data_ptr(), b, k, r, s, stream)
+        err = fn(table.data_ptr(), shards.data_ptr(), out.data_ptr(), b, k,
+                 r, s, stream)
     if err != 0:
-        raise ErasureError(f"gf_apply launch failed: "
-                           f"{lib.cb_gf_error_string(err).decode()}")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+        raise ErasureError(
+            f"{name} launch failed: {error_string(err).decode()}")
     return out
 
 
-def _library() -> ctypes.CDLL:
+def apply_matrix(table: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
+    """``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``: the kernel
+    for a CUDA tensor, the plain version for a CPU tensor.  B, R or S of
+    0 return an empty result without a launch."""
+    global LAUNCHES
+    _check(table, shards)
+    if shards.device.type == "cpu":
+        return apply_matrix_plain(table, shards)
+    out = _launch("gf_apply", table, shards)
+    if out.numel():
+        with _COUNT_LOCK:
+            LAUNCHES += 1
+    return out
+
+
+def packed_geometry_ok(r: int, k: int, s: int) -> bool:
+    """The field-multiplexed kernel's gate, with the JAX package's exact
+    semantics: doubled output rows within 128 (r <= 8), per-field
+    popcounts within 6 bits (ceil(8k / 2) <= 63, k <= 15), and S a
+    multiple of 256."""
+    return 0 < r <= 8 and 0 < k <= 15 and s % 256 == 0
+
+
+def _check_packed(table: torch.Tensor, shards: torch.Tensor) -> None:
+    _check(table, shards)
+    r, k, _ = table.shape
+    s = shards.shape[2]
+    if not packed_geometry_ok(r, k, s):
+        raise ErasureError(
+            f"geometry r={r} k={k} s={s} outside the packed kernel's gate")
+
+
+def apply_matrix_packed_plain(table: torch.Tensor,
+                              shards: torch.Tensor) -> torch.Tensor:
+    """The plain version of the packed kernel on any device, in its
+    arithmetic: bytes 2n and 2n+1 of a shard row share element n of a
+    bit-plane (bit 0 and bit 6), the block-diagonal weight
+    ``[2 * 8R, 8K]`` splits the contraction at ``kc = 4K``, the sums are
+    int32, and the two halves' fields give the output bits
+    (``lo = (a0 ^ a1) & 1``, ``hi = ((a0 ^ a1) >> 6) & 1``).  Sums of
+    products, no matmul, so it runs on the card as well."""
+    _check_packed(table, shards)
+    r, k, _ = table.shape
+    n_parts, _, s = shards.shape
+    out = torch.empty((n_parts, r, s), dtype=torch.uint8,
+                      device=shards.device)
+    if out.numel() == 0:
+        return out.zero_()
+    dev = shards.device
+    r8, k8, kc, half = 8 * r, 8 * k, 4 * k, s // 2
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+    m2 = ((table.to(dev)[:, None, :, :] >> shifts[None, :, None, None]) & 1)
+    m2 = m2.reshape(r8, k8).to(torch.int32)
+    col = torch.arange(k8, device=dev)[None, :]
+    weight = torch.cat([m2 * (col < kc), m2 * (col >= kc)])  # [2*R8, K8]
+    slab = max(1, _PLAIN_SLAB_BYTES // max(1, half * 4 * (k8 + 4 * r8)))
+    for lo in range(0, n_parts, slab):
+        part = shards[lo:lo + slab]
+        n = part.shape[0]
+        pair = part.reshape(n, k, half, 2)
+        bits = (pair[:, :, None] >> shifts[None, None, :, None, None]) & 1
+        elems = bits[..., 0] | (bits[..., 1] << 6)  # [n, K, 8, S/2]
+        elems = elems.reshape(n, k8, half).to(torch.int32)
+        acc = torch.zeros((n, 2 * r8, half), dtype=torch.int32, device=dev)
+        for c in range(k8):
+            acc += weight[None, :, c, None] * elems[:, None, c, :]
+        x = acc[:, :r8] ^ acc[:, r8:]
+        both = torch.stack([x & 1, (x >> 6) & 1], dim=-1)  # [n, R8, S/2, 2]
+        out[lo:lo + slab] = _pack_bits(both.reshape(n, r, 8, s))
+    return out
+
+
+def apply_matrix_packed(table: torch.Tensor,
+                        shards: torch.Tensor) -> torch.Tensor:
+    """The same bytes as ``apply_matrix`` through the packed kernel for a
+    CUDA tensor (the plain version for a CPU tensor); a geometry outside
+    ``packed_geometry_ok`` raises ``ErasureError``."""
+    global PACKED_LAUNCHES
+    _check_packed(table, shards)
+    if shards.device.type == "cpu":
+        return apply_matrix_packed_plain(table, shards)
+    out = _launch("gf_apply_packed", table, shards)
+    if out.numel():
+        with _COUNT_LOCK:
+            PACKED_LAUNCHES += 1
+    return out
+
+
+def apply_selected(table: torch.Tensor, shards: torch.Tensor,
+                   packed: bool) -> torch.Tensor:
+    """The kernel choice of ``apply_m2_bitmajor``: the packed kernel when
+    ``packed`` is asked for and the geometry is inside its gate, else
+    ``apply_matrix``."""
+    r, k, _ = table.shape
+    if packed and packed_geometry_ok(r, k, shards.shape[2]):
+        return apply_matrix_packed(table, shards)
+    return apply_matrix(table, shards)
+
+
+def _library(name: str):
+    """``(launch, error_string)`` of kernel ``name``'s shared library."""
     from chunky_bits_tpu_torch.ops import _build
 
-    lib = _build.load("gf_apply")
-    if lib.cb_gf_apply.argtypes is None:
-        lib.cb_gf_error_string.argtypes = [ctypes.c_int]
-        lib.cb_gf_error_string.restype = ctypes.c_char_p
-        lib.cb_gf_apply.restype = ctypes.c_int
-        lib.cb_gf_apply.argtypes = [
+    lib = _build.load(name)
+    fn = getattr(lib, f"cb_{name}")
+    err = lib.cb_gf_error_string
+    if fn.argtypes is None:
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-    return lib
+    return fn, err
