@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # one card, every phase below
+    python3 chip_smoke.py --all-gpus   # the mesh backends over every card
 
-Builds the three kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
-at first use, into ``chunky_bits_tpu_torch/_build/``) and holds each byte
-for byte against its plain PyTorch version on the card; the packed GF
-kernel also against ``gf_apply`` and numpy at its gate's corners.  Then it
-drives the main path at the repo's geometry (d=10, p=4, 1 MiB chunks):
+Builds the four kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
+at first use, into ``chunky_bits_tpu_torch/_build/``) and holds each
+against its plain PyTorch version on the card, byte for byte (int16
+element for element for the accumulator K2); the packed GF kernel also
+against ``gf_apply`` and numpy at its gate's corners, K2's packed rank
+partials against ``gf_apply`` and numpy at BASELINE.md config 5.  Then it
+drives the main paths:
 
-* the erasure plane: ingest of 256 parts through
-  ``ErasureCoder.encode_hash_batch`` with host and device SHA, a degraded
-  read with shards 0, 1, 12 and 13 lost, and concurrent requests through
-  both batchers; once with the packed kernel off and once on, with the
-  same bytes;
+* the erasure plane at the repo's geometry (d=10, p=4, 1 MiB chunks):
+  ingest of 256 parts through ``ErasureCoder.encode_hash_batch`` with
+  host and device SHA, a degraded read with shards 0, 1, 12 and 13 lost,
+  and concurrent requests through both batchers; once with the packed
+  kernel off and once on, with the same bytes;
 * the object codec: BASELINE.md config 2, a 10 GiB stream (plus a
   777-byte tail part) through ``FileWriteBuilder`` over the void
   destination, packed off and on, with equal file references; and a
   ~1 GiB object over 14 ``path`` destinations in a temporary directory:
   write, read, delete the chunk files of shards 0, 1, 12 and 13 of every
   part, read again, verify, resilver, verify and read a third time, every
-  read byte-identical to the source.
+  read byte-identical to the source;
+* the multi-device plane on 8 logical devices of the card (a stream
+  each, what ``CHUNKY_BITS_TORCH_VIRTUAL_DEVICES=8`` gives): the ``mesh``
+  backend through ``encode_hash_batches`` and the decode in its three
+  layouts (config 5 at b=2: dp2/tp4 with K2; config 5 at b=16: dp8;
+  d=10 p=4 at b=1: sp8), with the dispatch window's overlap counters;
+  config 5 through ``cuda:dp2,tp4``: a 10 GiB ingest whose file reference
+  equals the ``cuda`` backend's, and a ~1 GiB round trip over 26 path
+  destinations with shards 0, 5, 9, 21, 23 and 25 of every part lost.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
-before it, and must launch what its blocks and dispatches call for.  Then
-it times each kernel at the main path's shape beside its plain version and
-its bound; the SHA bound counts the instructions of one compression,
-checked against the compiled loop (``cuobjdump -sass``).
+before it, and must launch what its blocks and dispatches call for (a
+mesh block launches one kernel per logical device with work).  Then it
+times each kernel beside its plain version and its bound; the SHA bound
+counts the instructions of one compression, checked against the compiled
+loop (``cuobjdump -sass``).
 
 Every phase raises on failure; nothing is caught.  The last lines are a
 JSON object per kernel and ``{"ok": true, "device": {...}}``.  Without
@@ -46,6 +58,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -54,6 +67,28 @@ D, P, CHUNK = 10, 4, 1 << 20
 INGEST_PARTS = 256   # BASELINE.md config 2's batch: two blocks of the walk
 KERNEL_PARTS = 128   # parts per block of the walk: the kernels' launch shape
 LOST = (0, 1, 12, 13)
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """A stripe geometry of BASELINE.md: d data + p parity shards of
+    ``chunk`` bytes, and the shards a degraded read loses."""
+
+    d: int
+    p: int
+    chunk: int
+    lost: tuple
+
+
+#: configs 2 and 3: the repo's main geometry
+CONFIG2 = Geometry(D, P, CHUNK, LOST)
+#: config 5: the wide stripe; the erasures of tests/test_parallel.py:367
+CONFIG5 = Geometry(20, 6, 4 << 20, (0, 5, 9, 21, 23, 25))
+#: the config-5 batch K2 is checked and timed at, and its tp extent
+ACC_PARTS, TP = 8, 4
+
+#: every kernel of the port, by the name its launch count goes under
+KERNELS = ("gf_apply", "gf_apply_packed", "gf_acc", "sha256_rows")
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and dense int8 tensor
 # ops/s.  The sheet's 67 TFLOP/s of float32 is 132 SMs x 128 lanes x 2 (an
@@ -405,11 +440,17 @@ DISK_PARTS = 100      # the on-disk object: ~1 GiB (config 3's geometry)
 TAIL = 777            # bytes of the short last part of each object
 OBJECT_BATCH = 256    # bench.py config 2: batch, concurrency batch + 4,
 OBJECT_STAGE = 8      # stage 8, a shared batcher on a host pipeline
+OBJECT5_PARTS = 128   # config 5: a 10 GiB stream of 80 MiB parts,
+OBJECT5_BATCH = 32    # batched as config 2's bytes (2.5 GiB a batch),
+OBJECT5_STAGE = 2     # staged a block of cuda:dp2,tp4 at a time
+DISK5_PARTS = 13      # the config-5 object on disk: ~1 GiB
 
 
-#: bytes of the synthetic stream's blob: 16 parts and a prime number of
-#: bytes more, so no two parts of a stream start at one offset of the blob
-#: and content addressing finds no duplicate chunk to share
+#: bytes of the synthetic stream's blob: 16 config-2 parts and a prime
+#: number of bytes more.  The length is odd, so a chunk of 1 or 4 MiB
+#: (configs 2 and 5) starts at a new offset of the blob for the first
+#: BLOB_BYTES chunks of a stream: content addressing finds no duplicate
+#: chunk to share
 BLOB_BYTES = 16 * D * CHUNK + 4099
 
 
@@ -482,7 +523,7 @@ def expected_gf(backend, shapes, packed: bool) -> dict:
     and the geometry is inside its gate."""
     from chunky_bits_tpu_torch.ops import gf_kernel
 
-    want = {"gf_apply": 0, "gf_apply_packed": 0, "sha256_rows": 0}
+    want = {name: 0 for name in KERNELS}
     for b, r, k, s in shapes:
         blocks = -(-b // max(1, backend.max_block_bytes // (k * s)))
         name = ("gf_apply_packed"
@@ -492,40 +533,89 @@ def expected_gf(backend, shapes, packed: bool) -> dict:
     return want
 
 
-def object_builder(destination, batcher, pipeline):
+class DispatchRecorder:
+    """Records the shape ``(B, r, k, S)`` of every ``submit_apply`` of a
+    mesh backend (the one door of its dispatches: ``apply_matrix``, the
+    coder's feed-ahead route and the batchers all pass through it)."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.shapes: list[tuple] = []
+        real = backend.submit_apply
+
+        def submit_apply(mat, shards, on_block=None):
+            b, k, s = shards.shape
+            self.shapes.append((b, mat.shape[0], k, s))
+            return real(mat, shards, on_block=on_block)
+
+        backend.submit_apply = submit_apply
+
+    def take(self) -> list[tuple]:
+        shapes, self.shapes = self.shapes, []
+        return shapes
+
+    def expected(self) -> dict:
+        """Launches the recorded dispatches call for, then cleared: each
+        block launches one kernel per logical device with work, K2 on
+        every ('dp', 'tp') device, K1 on every ('dp', 'sp') one."""
+        want = {name: 0 for name in KERNELS}
+        for b, r, k, s in self.take():
+            if b == 0 or r == 0 or s == 0:
+                continue
+            lay, block = self.backend.plan(b, r, k, s)
+            for lo in range(0, b, block):
+                n = min(block, b - lo)
+                name = "gf_acc" if lay.wide else "gf_apply"
+                want[name] += min(n, lay.dp) * lay.minor
+        return want
+
+
+def object_builder(destination, batcher, pipeline, geo=None,
+                   batch: int = OBJECT_BATCH, stage: int = OBJECT_STAGE,
+                   backend=None):
     from chunky_bits_tpu_torch.file import FileWriteBuilder
 
-    return (FileWriteBuilder().with_destination(destination)
-            .with_chunk_size(CHUNK).with_data_chunks(D).with_parity_chunks(P)
-            .with_concurrency(OBJECT_BATCH + 4)
-            .with_batch_parts(OBJECT_BATCH).with_stage_parts(OBJECT_STAGE)
+    geo = geo or CONFIG2
+    return (FileWriteBuilder().with_backend(backend)
+            .with_destination(destination).with_chunk_size(geo.chunk)
+            .with_data_chunks(geo.d).with_parity_chunks(geo.p)
+            .with_concurrency(batch + 4)
+            .with_batch_parts(batch).with_stage_parts(stage)
             .with_encode_batcher(batcher).with_host_pipeline(pipeline))
 
 
-def phase_object_ingest(blob: bytes, pipeline, packed: bool):
-    """BASELINE.md config 2 through the port's writer: the 10 GiB stream
-    plus a 777-byte tail part over the void destination; returns the
-    file reference, the batcher and the seconds it took."""
+def phase_object_ingest(blob: bytes, pipeline, label: str, geo=None,
+                        parts: int = OBJECT_PARTS,
+                        batch: int = OBJECT_BATCH,
+                        stage: int = OBJECT_STAGE, backend=None):
+    """A stream of ``parts`` full parts plus a 777-byte tail part through
+    the port's writer over the void destination; returns the file
+    reference and the batcher."""
     import asyncio
 
+    geo = geo or CONFIG2
     encode_cls, _ = recording_batchers()
-    total = OBJECT_PARTS * D * CHUNK + TAIL
+    total = parts * geo.d * geo.chunk + TAIL
 
     async def drive():
-        batcher = encode_cls(max_batch=OBJECT_BATCH, host_pipeline=pipeline)
+        batcher = encode_cls(backend=backend, max_batch=batch,
+                             host_pipeline=pipeline)
         t0 = time.perf_counter()
-        ref = await object_builder(None, batcher, pipeline).write(
+        ref = await object_builder(None, batcher, pipeline, geo, batch,
+                                   stage, backend).write(
             CyclicSource(blob, total))
         dt = time.perf_counter() - t0
         await batcher.aclose()
         return ref, batcher, dt
 
     ref, batcher, dt = asyncio.run(drive())
-    assert ref.length == total and len(ref.parts) == OBJECT_PARTS + 1
-    log(f"object ingest packed={packed}: {total / 2**30:.3f} GiB through "
-        f"FileWriteBuilder (void destination) in {dt:.2f} s, "
-        f"{gib_s(total, dt):.2f} GiB/s; {batcher.dispatches} dispatch(es) "
-        f"of {sorted({sh[0] for sh in batcher.shapes})} parts")
+    assert ref.length == total and len(ref.parts) == parts + 1
+    sizes = sorted({sh[0] for sh in batcher.shapes})
+    log(f"object ingest {label}: {total / 2**30:.3f} GiB through "
+        f"FileWriteBuilder (void destination, d={geo.d} p={geo.p}, "
+        f"{geo.chunk >> 20} MiB chunks) in {dt:.2f} s, "
+        f"{gib_s(total, dt):.2f} GiB/s; {batcher.dispatches} dispatch(es)"
+        + (f" of {sizes} parts" if sizes else ""))
     return ref, batcher
 
 
@@ -546,29 +636,33 @@ def phase_object_ingest_warm(blob: bytes, pipeline) -> None:
     asyncio.run(drive())
 
 
-def check_object_ref(ref, blob: bytes) -> None:
+def check_object_ref(ref, blob: bytes, geo=None, parts: int = OBJECT_PARTS,
+                     sample: int = 4) -> None:
     """A sample of parts, the tail included, against the numpy oracle and
     hashlib."""
-    from chunky_bits_tpu_torch.ops.backend import NumpyBackend, get_coder
+    from chunky_bits_tpu_torch.ops import matrix
+    from chunky_bits_tpu_torch.ops.backend import NumpyBackend
 
-    coder = get_coder(D, P)
+    geo = geo or CONFIG2
+    rows_of = matrix.build_encode_matrix(geo.d, geo.p)[geo.d:]
     rng = np.random.default_rng(SEED + 5)
-    sample = sorted(rng.choice(OBJECT_PARTS, 4, replace=False).tolist())
-    for i in sample + [OBJECT_PARTS]:
-        length = D * CHUNK if i < OBJECT_PARTS else TAIL
-        shard = coder.shard_len(length)
-        raw = np.zeros(D * shard, dtype=np.uint8)
+    picked = sorted(rng.choice(parts, sample, replace=False).tolist())
+    for i in picked + [parts]:
+        length = geo.d * geo.chunk if i < parts else TAIL
+        shard = -(-length // geo.d)
+        raw = np.zeros(geo.d * shard, dtype=np.uint8)
         raw[:length] = np.frombuffer(
-            source_slice(blob, i * D * CHUNK, length), dtype=np.uint8)
-        data = raw.reshape(1, D, shard)
-        parity = NumpyBackend().apply_matrix(coder.parity_rows, data)
+            source_slice(blob, i * geo.d * geo.chunk, length),
+            dtype=np.uint8)
+        data = raw.reshape(1, geo.d, shard)
+        parity = NumpyBackend().apply_matrix(rows_of, data)
         rows = np.concatenate([data, parity], axis=1)[0]
         part = ref.parts[i]
         assert part.chunksize == shard
         got = [c.hash.value.digest for c in part.data + part.parity]
         assert got == [hashlib.sha256(r).digest() for r in rows], i
-    log(f"object ingest: file references equal packed off and on; parts "
-        f"{sample} and the tail equal to numpy and hashlib")
+    log(f"object ingest d={geo.d} p={geo.p}: parts {picked} and the tail "
+        f"equal to numpy and hashlib")
 
 
 async def read_and_compare(builder, blob: bytes, total: int) -> None:
@@ -580,12 +674,14 @@ async def read_and_compare(builder, blob: bytes, total: int) -> None:
     assert pos == total, (pos, total)
 
 
-def phase_round_trip(blob: bytes, pipeline, backend, packed: bool,
-                     path) -> dict:
-    """A ~1 GiB object over 14 ``path`` destinations: write, read, lose
-    shards 0, 1, 12 and 13 of every part, read degraded, verify, resilver,
-    verify and read again.  Each step is a path of its own for the launch
-    counts; returns the launches each step calls for."""
+def phase_round_trip(blob: bytes, pipeline, path, sfx: str, expect,
+                     geo=None, parts: int = DISK_PARTS,
+                     backend=None) -> dict:
+    """An object of ``parts`` parts (and a tail) over d+p ``path``
+    destinations: write, read, lose the chunk files of ``geo.lost`` in
+    every part, read degraded, verify, resilver, verify and read again.
+    Each step is a path of its own for the launch counts; ``expect(b)``
+    gives the launches a step's batcher ``b`` called for."""
     import asyncio
     import shutil
     import tempfile
@@ -593,9 +689,9 @@ def phase_round_trip(blob: bytes, pipeline, backend, packed: bool,
     from chunky_bits_tpu_torch.file import (FileReadBuilder,
                                             LocationsDestination)
 
+    geo = geo or CONFIG2
     encode_cls, reconstruct_cls = recording_batchers()
-    total = DISK_PARTS * D * CHUNK + TAIL
-    sfx = "_packed" if packed else ""
+    total = parts * geo.d * geo.chunk + TAIL
     expected = {}
 
     def timed(name, coro_fn, nbytes: int):
@@ -606,51 +702,52 @@ def phase_round_trip(blob: bytes, pipeline, backend, packed: bool,
         return out
 
     with tempfile.TemporaryDirectory(prefix="cb-smoke-") as root:
-        dirs = [os.path.join(root, f"d{i}") for i in range(D + P)]
+        dirs = [os.path.join(root, f"d{i}") for i in range(geo.d + geo.p)]
         for d in dirs:
             os.mkdir(d)
         dest = LocationsDestination(dirs)
         free = shutil.disk_usage(root).free
-        log(f"object round trip packed={packed}: {total / 2**30:.3f} GiB "
-            f"over {len(dirs)} path destinations under {root} "
-            f"({free / 2**30:.1f} GiB free before)")
+        label = {"": "packed=False", "_packed": "packed=True"}.get(
+            sfx, backend)
+        log(f"object round trip {label}: "
+            f"{total / 2**30:.3f} GiB over {len(dirs)} path destinations "
+            f"under {root} ({free / 2**30:.1f} GiB free before)")
 
         async def write():
-            batcher = encode_cls(max_batch=OBJECT_BATCH,
+            batcher = encode_cls(backend=backend, max_batch=OBJECT_BATCH,
                                  host_pipeline=pipeline)
-            ref = await object_builder(dest, batcher, pipeline).write(
+            ref = await object_builder(dest, batcher, pipeline, geo,
+                                       backend=backend).write(
                 CyclicSource(blob, total))
             await batcher.aclose()
             return ref, batcher
 
         ref, enc = timed("object_write", write, total)
-        expected["object_write" + sfx] = expected_gf(backend, enc.shapes,
-                                                     packed)
+        expected["object_write" + sfx] = expect(enc)
 
         async def read():
             # a read takes any d of the d+p chunks at random, so a healthy
             # part rebuilds its data rows whenever parity came first
-            batcher = reconstruct_cls()
-            await read_and_compare(FileReadBuilder(ref).with_batcher(batcher),
-                                   blob, total)
+            batcher = reconstruct_cls(backend=backend)
+            await read_and_compare(
+                FileReadBuilder(ref).with_backend(backend)
+                .with_batcher(batcher), blob, total)
             await batcher.aclose()
             return batcher
 
         rec = timed("object_read", read, total)
-        expected["object_read" + sfx] = expected_gf(backend, rec.shapes,
-                                                    packed)
+        expected["object_read" + sfx] = expect(rec)
 
         lost = []
         for part in ref.parts:
             chunks = part.data + part.parity
-            for i in LOST:
+            for i in geo.lost:
                 lost.append(str(chunks[i].locations[0]))
                 os.remove(lost[-1])
 
         rec = timed("object_degraded_read", read, total)
         assert rec.dispatches > 0
-        expected["object_degraded_read" + sfx] = expected_gf(
-            backend, rec.shapes, packed)
+        expected["object_degraded_read" + sfx] = expect(rec)
 
         t0 = time.perf_counter()
         report = asyncio.run(ref.verify())
@@ -663,22 +760,20 @@ def phase_round_trip(blob: bytes, pipeline, backend, packed: bool,
             f"deleted chunks unavailable")
 
         async def resilver():
-            batcher = reconstruct_cls()
-            rep = await ref.resilver(dest, batcher=batcher)
+            batcher = reconstruct_cls(backend=backend)
+            rep = await ref.resilver(dest, backend=backend, batcher=batcher)
             await batcher.aclose()
             return rep, batcher
 
         rep, rec = timed("object_resilver", resilver,
-                         len(ref.parts) * len(LOST) * CHUNK)
+                         len(ref.parts) * len(geo.lost) * geo.chunk)
         assert len(rep.new_locations()) == len(lost), str(rep)
         assert not rep.failed_writes(), rep.failed_writes()
-        expected["object_resilver" + sfx] = expected_gf(backend, rec.shapes,
-                                                        packed)
+        expected["object_resilver" + sfx] = expect(rec)
         clean = asyncio.run(ref.verify())
         assert clean.is_ideal(), str(clean)
         rec = timed("object_read_resilvered", read, total)
-        expected["object_read_resilvered" + sfx] = expected_gf(
-            backend, rec.shapes, packed)
+        expected["object_read_resilvered" + sfx] = expect(rec)
         log(f"  resilver: {rep}; verify after: {clean}; every read "
             f"byte-identical to the source")
     return expected
@@ -814,6 +909,313 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
     return [gf, packed, sha]
 
 
+def numpy_windows(mat: np.ndarray, data: np.ndarray,
+                  out: np.ndarray) -> None:
+    """``out`` against the numpy oracle on the first and last 64 KiB
+    columns of ``data`` (GF transforms are column-wise, and numpy takes
+    seconds per config-5 part)."""
+    from chunky_bits_tpu_torch.ops.backend import NumpyBackend
+
+    w = min(1 << 16, data.shape[2])
+    for cols in (slice(0, w), slice(data.shape[2] - w, data.shape[2])):
+        want = NumpyBackend().apply_matrix(
+            mat, np.ascontiguousarray(data[:, :, cols]))
+        assert np.array_equal(out[:, :, cols], want), cols
+
+
+def phase_acc_kernel(torch, dev) -> None:
+    """K2 against its plain version on the card, int16 element for
+    element: odd shapes, an unaligned base, and config 5 at the whole
+    stripe ``[8, 20, 4 MiB]`` and at each tp rank's ``[8, 5, 4 MiB]``.
+    The packed sum of the four rank partials equals K1 and numpy, and so
+    do the 6-erasure decode rows."""
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
+
+    g = CONFIG5
+    kb = g.d // TP
+    rng = np.random.default_rng(SEED + 6)
+    enc = matrix.build_encode_matrix(g.d, g.p)
+    cases = 0
+
+    def check(mat: np.ndarray, x):
+        nonlocal cases
+        table = gf_kernel.to_device_matrix(mat, dev)
+        got = gf_kernel.accumulate(table, x)
+        assert got.dtype == torch.int16
+        assert tuple(got.shape) == (x.shape[0], 8 * mat.shape[0], x.shape[2])
+        assert torch.equal(got, gf_kernel.accumulate_plain(table, x)), (
+            mat.shape, tuple(x.shape))
+        cases += 1
+        return got
+
+    for b in (1, 3):
+        for s in (1, 777, 4097):
+            x = torch.from_numpy(rng.integers(0, 256, (b, g.d, s),
+                                              dtype=np.uint8)).to(dev)
+            check(enc[g.d:], x)
+            check(enc[g.d:, :kb], x[:, :kb].contiguous())
+    buf = torch.from_numpy(rng.integers(0, 256, 3 * g.d * 4096 + 1,
+                                        dtype=np.uint8)).to(dev)
+    check(enc[g.d:], buf[1:].view(3, g.d, 4096))
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randint(0, 256, (ACC_PARTS, g.d, g.chunk), generator=gen,
+                      dtype=torch.uint8, device=dev)
+    k1 = gf_kernel.apply_matrix(gf_kernel.to_device_matrix(enc[g.d:], dev), x)
+    whole = check(enc[g.d:], x)
+    assert torch.equal(gf_kernel.pack_acc(whole), k1)
+    del whole
+    total = None
+    for t in range(TP):
+        part = check(enc[g.d:, t * kb:(t + 1) * kb],
+                     x[:, t * kb:(t + 1) * kb].contiguous())
+        if total is None:
+            total = part
+        else:
+            total.add_(part)
+        del part
+    parity = gf_kernel.pack_acc(total)
+    del total
+    assert torch.equal(parity, k1), "packed rank partials != K1"
+    numpy_windows(enc[g.d:], x.cpu().numpy(), parity.cpu().numpy())
+
+    present = [i for i in range(g.d + g.p) if i not in g.lost][:g.d]
+    dec = matrix.decode_matrix(enc, present, list(g.lost))
+    rows = torch.cat([x, parity], dim=1)
+    picked = rows[:, present].contiguous()
+    acc = check(dec, picked)
+    rebuilt = gf_kernel.pack_acc(acc)
+    del acc
+    assert torch.equal(rebuilt, gf_kernel.apply_matrix(
+        gf_kernel.to_device_matrix(dec, dev), picked))
+    assert torch.equal(rebuilt, rows[:, list(g.lost)])
+    torch.cuda.synchronize()
+    log(f"gf_acc: {cases} cases equal to its plain version (int16, "
+        f"element for element), config 5 [{ACC_PARTS}, {g.d}, "
+        f"{g.chunk}] and its {TP} tp ranks included; the packed sum of the "
+        f"rank partials equals gf_apply and numpy, and the packed "
+        f"{len(g.lost)}-erasure decode equals gf_apply and the lost rows")
+
+
+def phase_mesh(torch, dev, be, rec: DispatchRecorder, path,
+               expected: dict) -> None:
+    """The ``mesh`` backend on 8 logical devices of the card, through
+    ``ErasureCoder.encode_hash_batches`` (the feed-ahead route) and the
+    decode, at three layouts: config 5 at b=2 (dp2/tp4: K2), config 5 at
+    b=16 (dp8: K1) and d=10 p=4 1 MiB at b=1 (dp1/sp8: K1 on 128 KiB
+    slices).  Parity equals the ``cuda`` backend's and numpy's, every
+    digest hashlib's, rebuilt rows the lost ones."""
+    from chunky_bits_tpu_torch.ops import matrix
+    from chunky_bits_tpu_torch.ops.backend import get_coder
+    from chunky_bits_tpu_torch.ops.mesh_backend import plan_layout
+
+    cells = ((CONFIG5, 2, 3, (True, 2, 4)), (CONFIG5, 16, 2, (False, 8, 1)),
+             (CONFIG2, 1, 3, (False, 1, 8)))
+    for n, (g, b, batches, layout) in enumerate(cells):
+        lay = plan_layout(be.n_devices, b, g.d, g.chunk)
+        assert (lay.wide, lay.dp, lay.minor) == layout, lay
+        tag = f"mesh_d{g.d}_b{b}"
+        coder = get_coder(g.d, g.p, be.name)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10 + n)
+        data = torch.randint(0, 256, (b * batches, g.d, g.chunk),
+                             generator=gen, dtype=torch.uint8,
+                             device=dev).cpu().numpy()
+        before = be.pipeline.stats()
+        t0 = time.perf_counter()
+        outs = path(tag + "_encode", coder.encode_hash_batches,
+                    [data[i * b:(i + 1) * b] for i in range(batches)])
+        dt = time.perf_counter() - t0
+        expected[tag + "_encode"] = rec.expected()
+        after = be.pipeline.stats()
+        parity = np.concatenate([o[0] for o in outs])
+        digests = np.concatenate([o[1] for o in outs])
+        assert np.array_equal(parity, get_coder(g.d, g.p, "cuda")
+                              .encode_batch(data)), tag
+        numpy_windows(coder.parity_rows, data, parity)
+        want = np.concatenate([hashlib_rows(data), hashlib_rows(parity)],
+                              axis=1)
+        assert np.array_equal(digests, want), tag
+        assert after.submits_while_busy > before.submits_while_busy, tag
+        present = [i for i in range(g.d + g.p) if i not in g.lost]
+        full = np.concatenate([data, parity], axis=1)
+        picked = np.ascontiguousarray(full[:, present[:g.d]])
+        t1 = time.perf_counter()
+        rebuilt = path(tag + "_decode", coder.reconstruct_batch_picked,
+                       picked, present, list(g.lost))
+        dt_dec = time.perf_counter() - t1
+        expected[tag + "_decode"] = rec.expected()
+        assert np.array_equal(rebuilt, full[:, list(g.lost)]), tag
+        log(f"mesh d={g.d} p={g.p} b={b} ({'dp%d/%s%d' % (lay.dp, 'tp' if lay.wide else 'sp', lay.minor)}): "
+            f"{batches} batches through encode_hash_batches in "
+            f"{dt * 1e3:.1f} ms ({gib_s(data.nbytes, dt):.2f} GiB/s), "
+            f"{len(g.lost)}-erasure decode in {dt_dec * 1e3:.1f} ms; parity "
+            f"equal to the cuda backend's and numpy's, all digests "
+            f"hashlib's, rebuilt rows the lost ones")
+    st = be.pipeline.stats()
+    log(f"mesh dispatch window: {st}")
+    assert st.max_inflight >= 2 and st.submits_while_busy >= 1, st
+    assert st.cancelled == 0 and st.completed == st.submitted, st
+
+
+def phase_acc_timings(torch, dev) -> dict:
+    """K2 at the config-5 shapes beside its bound and its plain version;
+    K1 on the same stripe in turns with K2 (K1, K2, K2, K1); the tp
+    reduction and pack (plain torch ops) beside their bound.  No single
+    PyTorch call computes K2, so ``library_ms`` is null."""
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
+
+    g = CONFIG5
+    kb = g.d // TP
+    b, s = ACC_PARTS, g.chunk
+    enc = matrix.build_encode_matrix(g.d, g.p)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randint(0, 256, (b, g.d, s), generator=gen, dtype=torch.uint8,
+                      device=dev)
+    t_full = gf_kernel.to_device_matrix(enc[g.d:], dev)
+    tables = [gf_kernel.to_device_matrix(enc[g.d:, t * kb:(t + 1) * kb], dev)
+              for t in range(TP)]
+    ranks = [x[:, t * kb:(t + 1) * kb].contiguous() for t in range(TP)]
+    one = ranks[0][:1].contiguous()  # the main path's launch: one part
+
+    got = gf_kernel.accumulate(tables[0], ranks[0])
+    held = []
+    plain_ms = time_cuda(
+        torch, lambda: held.append(gf_kernel.accumulate_plain(tables[0],
+                                                               ranks[0])),
+        reps=1, warm=0)
+    err = int((got.int() - held[0].int()).abs().max())
+    del got, held
+    ms = {"k1": [], "k2": []}
+    for which in ("k1", "k2", "k2", "k1"):
+        fn = gf_kernel.apply_matrix if which == "k1" else gf_kernel.accumulate
+        ms[which].append(time_cuda(torch, lambda: fn(t_full, x)))
+    k2_rank = time_cuda(torch, lambda: gf_kernel.accumulate(tables[0],
+                                                            ranks[0]))
+    k2_one = time_cuda(torch, lambda: gf_kernel.accumulate(tables[0], one))
+    partials = [gf_kernel.accumulate(t, r) for t, r in zip(tables, ranks)]
+    k1 = gf_kernel.apply_matrix(t_full, x)
+
+    def reduce_pack():
+        total = partials[0]  # in place, as the tp path sums
+        for q in partials[1:]:
+            total.add_(q)
+        return gf_kernel.pack_acc(total)
+
+    assert torch.equal(reduce_pack(), k1), "reduction != K1"
+    red_ms = time_cuda(torch, reduce_pack, reps=3)
+    del partials
+
+    def bound(nbytes: int, ops: int) -> tuple[float, str]:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    r8 = 8 * g.p
+
+    def acc_bound(n: int, k: int) -> tuple[float, str]:
+        # each input byte read once, an int16 per output bit written once;
+        # the bit-plane product's int8 MACs at the tensor-core rate
+        return bound(n * k * s + n * r8 * s * 2 + g.p * k * 8,
+                     2 * r8 * 8 * k * n * s)
+
+    rank_bound, rank_by = acc_bound(b, kb)
+    full_bound, _ = acc_bound(b, g.d)
+    one_bound, _ = acc_bound(1, kb)
+    red_bound = (TP * b * r8 * s * 2 + b * g.p * s) / HBM_BYTES_PER_S * 1e3
+    k1_bound, _ = bound(b * g.d * s + b * g.p * s, 2 * r8 * 8 * g.d * b * s)
+    k1_ms, k2_full = (statistics.median(ms["k1"]),
+                      statistics.median(ms["k2"]))
+    entry = {"name": "gf_acc", "route": "cuda",
+             "source": "chunky_bits_tpu_torch/csrc/gf_acc.cu",
+             "replaces": "chunky_bits_tpu/ops/pallas_kernels.py:222 "
+                         "(pack=False)",
+             "max_abs_err": err, "ms": k2_rank, "plain_ms": plain_ms,
+             "bound_ms": rank_bound, "bound_by": rank_by,
+             "library_ms": None, "shape": [b, kb, s],
+             "full_stripe_shape": [b, g.d, s], "full_stripe_ms": k2_full,
+             "full_stripe_bound_ms": full_bound,
+             "gf_apply_full_stripe_ms": k1_ms,
+             "gf_apply_full_stripe_bound_ms": k1_bound,
+             "main_path_shape": [1, kb, s], "main_path_ms": k2_one,
+             "main_path_bound_ms": one_bound,
+             "reduce_pack_ms": red_ms, "reduce_pack_bound_ms": red_bound,
+             "turns_ms": ms}
+    log(f"gf_acc [{b}, {kb}, {s}] -> int16 [{b}, {r8}, {s}] (one tp rank): "
+        f"{k2_rank:.3f} ms, bound {rank_bound:.3f} ms ({rank_by}); plain "
+        f"{plain_ms:.1f} ms, max_abs_err {err} (tolerance 0: integer "
+        f"arithmetic); at the main path's [1, {kb}, {s}] {k2_one:.3f} ms, "
+        f"bound {one_bound:.3f} ms; no single PyTorch call computes it")
+    log(f"gf_acc [{b}, {g.d}, {s}] (whole stripe) {k2_full:.3f} ms, bound "
+        f"{full_bound:.3f} ms; gf_apply on the same stripe {k1_ms:.3f} ms, "
+        f"bound {k1_bound:.3f} ms (turns K1, K2, K2, K1: {ms})")
+    log(f"tp reduction + pack of {TP} int16 partials [{b}, {r8}, {s}] "
+        f"(torch ops): {red_ms:.3f} ms, bound {red_bound:.3f} ms (bytes)")
+    return entry
+
+
+def phase_all_gpus(torch, devices) -> None:
+    """The mesh backends over ``devices`` (one logical device per card
+    here): every layout ``plan_layout`` picks for a few batches, and every
+    explicit spec the cards divide into, against the numpy oracle (64 KiB
+    windows) and the ``cuda`` backend, launches counted per dispatch; the
+    tp partials cross cards by ``.to()``.  Then config 5 at b=8 through
+    ``cuda:tp<n>`` and ``mesh``, timed beside the ``cuda`` backend."""
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
+    from chunky_bits_tpu_torch.ops.backend import get_coder
+    from chunky_bits_tpu_torch.ops.mesh_backend import MeshBackend, plan_layout
+    from chunky_bits_tpu_torch.parallel.backend import MeshCudaBackend
+
+    n = len(devices)
+    g = CONFIG5
+    enc = matrix.build_encode_matrix(g.d, g.p)
+    ref = get_coder(g.d, g.p, "cuda")
+    rng = np.random.default_rng(SEED + 20)
+    specs = [f"dp{n}", f"sp{n}"] + [f"dp{n // t},tp{t}"
+                                    for t in range(2, n + 1)
+                                    if n % t == 0 and g.d % t == 0]
+    backends = [MeshBackend(devices=devices)] + [
+        MeshCudaBackend(spec, devices=devices) for spec in specs]
+    checked = []
+    for be in backends:
+        rec = DispatchRecorder(be)
+        for b, s in ((1, 1 << 20), (2, (1 << 20) + 7), (n, 1 << 20),
+                     (2 * n + 1, 4097)):
+            data = rng.integers(0, 256, (b, g.d, s), dtype=np.uint8)
+            gf_kernel.LAUNCHES = gf_kernel.ACC_LAUNCHES = 0
+            got = be.apply_matrix(enc[g.d:], data)
+            launched = {"gf_apply": gf_kernel.LAUNCHES,
+                        "gf_acc": gf_kernel.ACC_LAUNCHES}
+            want = rec.expected()
+            assert launched == {k: want[k] for k in launched}, (
+                be.name, b, s, launched, want)
+            assert np.array_equal(got, ref.encode_batch(data)), (be.name, b)
+            numpy_windows(enc[g.d:], data, got)
+            lay = (plan_layout(n, b, g.d, s) if be.name == "mesh"
+                   else be._layout(b, g.d, s))
+            checked.append(f"{be.name} b={b}: {'tp' if lay.wide else 'sp'}"
+                           f"{lay.minor}/dp{lay.dp} {launched}")
+    for line in checked:
+        log(f"  {line}")
+    log(f"all GPUs: {len(checked)} dispatches over {n} cards equal to the "
+        f"cuda backend and numpy, each with the launches its blocks call "
+        f"for")
+    dev = devices[0].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    data = torch.randint(0, 256, (ACC_PARTS, g.d, g.chunk), generator=gen,
+                         dtype=torch.uint8, device=dev).cpu().numpy()
+    want = ref.encode_batch(data)
+    for be in [ref.backend] + backends:
+        be.apply_matrix(enc[g.d:], data)  # warm: pinned staging, tables
+        t0 = time.perf_counter()
+        got = be.apply_matrix(enc[g.d:], data)
+        dt = time.perf_counter() - t0
+        assert np.array_equal(got, want), be.name
+        log(f"  config 5 [{ACC_PARTS}, {g.d}, {g.chunk}] through {be.name}: "
+            f"{dt * 1e3:.1f} ms host to host, {gib_s(data.nbytes, dt):.2f} "
+            f"GiB/s of data")
+
+
 def main() -> int:
     import torch
 
@@ -821,14 +1223,31 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from chunky_bits_tpu_torch.ops import gf_kernel, sha256
-    from chunky_bits_tpu_torch.ops.backend import get_coder
+    from chunky_bits_tpu_torch.ops.backend import (get_backend, get_coder,
+                                                   register_backend)
+    from chunky_bits_tpu_torch.ops.mesh_backend import MeshBackend
+    from chunky_bits_tpu_torch.parallel.backend import MeshCudaBackend
     from chunky_bits_tpu_torch.parallel.host_pipeline import HostPipeline
+    from chunky_bits_tpu_torch.utils.virtualmesh import virtual_devices
 
     dev = torch.device("cuda", 0)
     smi = phase_device(torch)
     phase_build()
+    if "--all-gpus" in sys.argv[1:]:
+        from chunky_bits_tpu_torch.utils.virtualmesh import visible_devices
+
+        devices = visible_devices()  # one logical device per card
+        assert len({ld.device for ld in devices}) >= 2, \
+            "--all-gpus needs two or more cards"
+        phase_all_gpus(torch, devices)
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     phase_kernels(torch, dev)
     phase_packed_kernel(torch, dev)
+    phase_acc_kernel(torch, dev)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     data = torch.randint(0, 256, (INGEST_PARTS, D, CHUNK), generator=gen,
@@ -844,10 +1263,12 @@ def main() -> int:
     def path(name: str, fn, *args):
         gf_kernel.LAUNCHES = 0
         gf_kernel.PACKED_LAUNCHES = 0
+        gf_kernel.ACC_LAUNCHES = 0
         sha256.LAUNCHES = 0
         out = fn(*args)
         counts[name] = {"gf_apply": gf_kernel.LAUNCHES,
                         "gf_apply_packed": gf_kernel.PACKED_LAUNCHES,
+                        "gf_acc": gf_kernel.ACC_LAUNCHES,
                         "sha256_rows": sha256.LAUNCHES}
         return out
 
@@ -893,6 +1314,7 @@ def main() -> int:
     for name in list(expected):
         want = expected[name]
         want.setdefault("sha256_rows", 0)
+        want.setdefault("gf_acc", 0)
         k1 = want.pop("gf_apply")
         packed_path = name.endswith("_packed")
         want["gf_apply"] = 0 if packed_path else k1
@@ -912,27 +1334,70 @@ def main() -> int:
         phase_object_ingest_warm(blob, pipeline)
         name = "object_ingest" + ("_packed" if packed else "")
         ref, batcher = path(name, phase_object_ingest, blob, pipeline,
-                            packed)
+                            f"packed={packed}")
         log(f"  host pipeline: {pipeline.stats()}")
         pipeline.close()
         expected[name] = expected_gf(be, batcher.shapes, packed)
         refs.append(ref)
     be.packed = None
     assert refs[0].to_obj() == refs[1].to_obj(), "references differ"
+    log("object ingest: file references equal packed off and on")
     check_object_ref(refs[0], blob)
     del refs
     pipeline = HostPipeline()
     for packed in (False, True):
         be.packed = packed
-        expected.update(phase_round_trip(blob, pipeline, be, packed, path))
+        expected.update(phase_round_trip(
+            blob, pipeline, path, "_packed" if packed else "",
+            lambda b, packed=packed: expected_gf(be, b.shapes, packed)))
     be.packed = None
     pipeline.close()
+
+    # the multi-device plane on 8 logical devices of the card (what
+    # CHUNKY_BITS_TORCH_VIRTUAL_DEVICES=8 gives), registered under the
+    # names a user selects: ``mesh`` and ``cuda:dp2,tp4``
+    devices = virtual_devices(8, dev)
+    mesh_be = MeshBackend(devices=devices)
+    tp_be = MeshCudaBackend("dp2,tp4", devices=devices)
+    assert tp_be.name == "cuda:dp2,tp4"
+    for sharded in (mesh_be, tp_be):
+        register_backend(sharded)
+        assert get_backend(sharded.name) is sharded
+    mesh_rec, tp_rec = DispatchRecorder(mesh_be), DispatchRecorder(tp_be)
+    phase_mesh(torch, dev, mesh_be, mesh_rec, path, expected)
+
+    # BASELINE.md config 5 through cuda:dp2,tp4: a 10 GiB ingest whose
+    # reference equals the cuda backend's, then a ~1 GiB round trip on
+    # disk with 6 shards of every part lost
+    pipeline = HostPipeline()
+    refs = []
+    for name in (tp_be.name, "cuda"):
+        tag = "object5_ingest_" + ("tp" if name == tp_be.name else "cuda")
+        ref, batcher = path(tag, phase_object_ingest, blob, pipeline, name,
+                            CONFIG5, OBJECT5_PARTS, OBJECT5_BATCH,
+                            OBJECT5_STAGE, name)
+        expected[tag] = (tp_rec.expected() if name == tp_be.name
+                         else expected_gf(be, batcher.shapes, False))
+        log(f"  host pipeline: {pipeline.stats()}")
+        refs.append(ref)
+    assert refs[0].to_obj() == refs[1].to_obj(), "config-5 references differ"
+    log("object ingest config 5: the file reference through cuda:dp2,tp4 "
+        "equals the cuda backend's")
+    check_object_ref(refs[0], blob, CONFIG5, OBJECT5_PARTS, sample=2)
+    del refs
+    expected.update(phase_round_trip(
+        blob, pipeline, path, "_tp", lambda _b: tp_rec.expected(), CONFIG5,
+        DISK5_PARTS, tp_be.name))
+    pipeline.close()
+    log(f"cuda:dp2,tp4 dispatch window: {tp_be.pipeline.stats()}")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")
     assert counts == expected, (counts, expected)
 
     kernels = phase_timings(torch, dev, coder, data, parity)
+    del data, parity, digests
+    kernels.append(phase_acc_timings(torch, dev))
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in counts.values())
         k["launches_by_path"] = {n: c[k["name"]] for n, c in counts.items()}

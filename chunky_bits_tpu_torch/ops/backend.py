@@ -15,6 +15,9 @@ arrays at the JAX package's layouts (matrix ``[R, K]``, shards
 * ``cuda``  - the hand-written kernels on the card (ops/cuda_backend.py);
   the default.  It raises ``ErasureError`` when there is no card or a
   kernel fails; it never hands back a CPU backend in its place.
+* ``mesh``  - every logical device, a layout per dispatch
+  (ops/mesh_backend.py); ``cuda:<spec>`` (e.g. ``cuda:dp2,tp4``) - one
+  explicit mesh (parallel/backend.py).  Both raise without a card.
 
 All of them produce byte-identical shards and digests; tests assert it.
 """
@@ -161,10 +164,35 @@ def get_backend(name: Optional[str] = None) -> ErasureBackend:
         from chunky_bits_tpu_torch.ops.cuda_backend import CudaBackend
 
         backend = CudaBackend()
+    elif name == "mesh":
+        from chunky_bits_tpu_torch.ops.mesh_backend import MeshBackend
+
+        backend = _build_mesh(name, MeshBackend)
+    elif name.startswith("cuda:"):
+        from chunky_bits_tpu_torch.parallel.backend import MeshCudaBackend
+
+        backend = _build_mesh(
+            name, lambda: MeshCudaBackend(name[len("cuda:"):]))
+        # the canonical name and the requested spelling share one entry
+        register_backend(backend)
+        with _REGISTRY_LOCK:
+            _REGISTRY[name] = backend
+        return backend
     else:
         raise ErasureError(f"unknown erasure backend {name!r}")
     register_backend(backend)
     return backend
+
+
+def _build_mesh(name: str, build: Callable[[], ErasureBackend]
+                ) -> ErasureBackend:
+    """Construct a mesh backend; a mesh the devices cannot hold (a
+    ``ValueError`` of ``parallel/mesh.py``) raises ``ErasureError``."""
+    try:
+        return build()
+    except ValueError as err:
+        raise ErasureError(f"mesh backend {name!r} unavailable: {err}") \
+            from err
 
 
 def _hash_rows_hashlib(rows: np.ndarray, out: np.ndarray) -> None:
@@ -180,6 +208,38 @@ def row_hasher() -> Callable[[np.ndarray, np.ndarray], None]:
     host.  hashlib for now; the native SHA-NI engine comes with the port
     of ``native/gf256.cpp``."""
     return _hash_rows_hashlib
+
+
+def staged_encode_hash(
+    submit: Callable, mat: np.ndarray, data: np.ndarray
+) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
+    """Stage ``mat ⊗ data`` through a backend's ``submit_apply`` with its
+    hashing, and return the function that collects ``(parity[B, r, S],
+    digests[B, k+r, 32])``.  The data rows hash on the shared host
+    pipeline's workers while the devices work, and each parity block as
+    it lands, while later blocks are still in flight."""
+    from chunky_bits_tpu_torch.parallel.host_pipeline import (
+        get_host_pipeline, join_jobs)
+
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    pipe = get_host_pipeline()
+    b, k, _ = data.shape
+    digests = np.empty((b, k, 32), dtype=np.uint8)
+    parity_digests = np.empty((b, mat.shape[0], 32), dtype=np.uint8)
+    jobs = list(pipe.hash_rows_jobs(data, digests))
+
+    def on_block(lo: int, arr: np.ndarray) -> None:
+        jobs.extend(pipe.hash_rows_jobs(arr,
+                                        parity_digests[lo:lo + arr.shape[0]]))
+
+    ticket = submit(mat, data, on_block=on_block)
+
+    def collect() -> tuple[np.ndarray, np.ndarray]:
+        parity = ticket.result()
+        join_jobs(jobs)
+        return parity, np.concatenate([digests, parity_digests], axis=1)
+
+    return collect
 
 
 _CODER_CACHE: dict[tuple[int, int, str, str], "ErasureCoder"] = {}
@@ -243,20 +303,56 @@ class ErasureCoder:
         Returns ``(parity[B, p, S], digests[B, d+p, 32])`` with digest
         rows ordered data shards then parity shards.  Backends exposing
         ``encode_and_hash`` do both in one call; otherwise parity comes
-        from ``encode_batch`` and the rows are hashed on the host.
+        from ``encode_batch`` and the rows are hashed on the host, the
+        data rows on the shared host pipeline's workers while the device
+        computes parity where the backend dispatches asynchronously
+        (``async_dispatch``: the explicit mesh backends).
         """
         self._check_data(data)
         data = np.ascontiguousarray(data)
         fused = getattr(self.backend, "encode_and_hash", None)
         if fused is not None:
             return fused(self.parity_rows, data)
-        parity = self.encode_batch(data)
         digests = np.empty((data.shape[0], self.data + self.parity, 32),
                            dtype=np.uint8)
         hash_rows = row_hasher()
-        hash_rows(data, digests[:, :self.data])
+        if getattr(self.backend, "async_dispatch", False):
+            from chunky_bits_tpu_torch.parallel.host_pipeline import (
+                get_host_pipeline, join_jobs)
+
+            data_digests = np.empty((data.shape[0], self.data, 32),
+                                    dtype=np.uint8)
+            jobs = get_host_pipeline().hash_rows_jobs(data, data_digests)
+            parity = self.encode_batch(data)
+            join_jobs(jobs)
+            digests[:, :self.data] = data_digests
+        else:
+            parity = self.encode_batch(data)
+            hash_rows(data, digests[:, :self.data])
         hash_rows(parity, digests[:, self.data:])
         return parity, digests
+
+    def encode_hash_batches(
+        self, batches: Sequence[np.ndarray]
+    ) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Feed-ahead ingest for several same-geometry batches: one
+        ``(parity, digests)`` pair per batch, byte-identical to calling
+        ``encode_hash_batch`` per batch.
+
+        On a backend with a ``submit_apply`` staging surface (the mesh
+        backends' dispatch window), every batch is staged before any is
+        collected, so batch k+1's copies and the host hash stage run
+        while batch k computes; each parity block is hashed as it lands.
+        Other backends, and p = 0, just loop."""
+        submit = getattr(self.backend, "submit_apply", None)
+        if submit is None or not self.parity:
+            return [self.encode_hash_batch(b) for b in batches]
+        collects = []
+        for data in batches:
+            self._check_data(data)
+            collects.append(staged_encode_hash(submit, self.parity_rows,
+                                               data))
+        return [collect() for collect in collects]
 
     def reconstruct_batch(
         self, shards: np.ndarray, present: Sequence[int],

@@ -14,9 +14,10 @@ Requests that arrive while a dispatch is running accumulate and form the
 next batch, so batching emerges from concurrency without added latency: a
 lone request is dispatched immediately.
 
-The port of ``chunky_bits_tpu/ops/batching.py`` with the same keys and
-merge policy.  Not ported yet: the ``submit_apply`` feed-ahead route, which
-needs the dispatch pipeline (ROADMAP Queue A, item 6).
+The port of ``chunky_bits_tpu/ops/batching.py`` with the same keys, merge
+policy and ``submit_apply`` feed-ahead route (backends with a dispatch
+window, the mesh backends, get a group's batches staged one after another
+through ``ErasureCoder.encode_hash_batches`` instead of one concatenate).
 """
 
 from __future__ import annotations
@@ -208,7 +209,8 @@ class EncodeHashBatcher(_CoalescingBatcher):
     Whether a group's batches are additionally merged into one
     ``[ΣB, d, S]`` dispatch follows the backend's
     ``prefers_merged_batches`` policy (see ``_run_group``): ``cuda`` and
-    ``torch`` merge, ``numpy`` runs the group's batches back-to-back
+    ``torch`` merge, the mesh backends stage the batches through
+    ``submit_apply``, ``numpy`` runs the group's batches back-to-back
     unmerged.
 
     ``host_pipeline`` (a ``parallel.host_pipeline.HostPipeline``) runs
@@ -256,6 +258,15 @@ class EncodeHashBatcher(_CoalescingBatcher):
         # way, so for it the copy is pure loss (the JAX package measured
         # the merge halving its CPU ingest) — it runs unmerged.
         merge = getattr(coder.backend, "prefers_merged_batches", False)
+        if merge and getattr(coder.backend, "submit_apply", None) is not None:
+            # Feed-ahead (the mesh backends): every batch is staged into
+            # the backend's bounded window before any is collected, so the
+            # devices work on batch k+1 while the host hashes batch k.
+            # The group shares its fate as a merged dispatch does, minus
+            # the concatenate; hashing overlaps inside
+            # encode_hash_batches, so the host_pipeline route is bypassed.
+            self.dispatches += len(batches)
+            return coder.encode_hash_batches(batches)
         if not merge or len(batches) == 1:
             # Unmerged batches are independent dispatches that happen to
             # share a drain tick: a failure belongs to its own waiter

@@ -21,14 +21,24 @@ geometries of ``packed_geometry_ok`` and raises on any other.
 ``apply_selected`` is the one place that chooses between the two kernels,
 as ``apply_m2_bitmajor`` does in the JAX package.
 
-``LAUNCHES`` and ``PACKED_LAUNCHES`` count the two kernels' launches, and
-nothing else.
+``accumulate(table, shards)`` stops before the mod 2: int16 ``[B, 8R, S]``
+popcounts in the JAX package's bit-major row order (row ``bit*R + i`` is
+bit ``bit`` of output byte-row i), through ``csrc/gf_acc.cu`` (the port of
+``pallas_kernels.py::_build_kernel(pack=False)``, ``acc_m2_bitmajor``).
+Counts of column blocks of one matrix add, so the ``tp`` layout of the
+mesh sums its ranks' partials and packs once with ``pack_acc`` (the
+counterpart of ``pack_acc_bitmajor``, plain torch ops).  Its plain version
+is ``accumulate_plain``.
+
+``LAUNCHES``, ``PACKED_LAUNCHES`` and ``ACC_LAUNCHES`` count the three
+kernels' launches, and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +50,8 @@ from chunky_bits_tpu_torch.ops import gf256
 LAUNCHES = 0
 #: kernel launches made by ``apply_matrix_packed`` in this process
 PACKED_LAUNCHES = 0
+#: kernel launches made by ``accumulate`` in this process
+ACC_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 #: device memory the plain version may use for one slab of parts
@@ -113,17 +125,20 @@ def _check(table: torch.Tensor, shards: torch.Tensor) -> None:
                            f"{tuple(shards.shape)}")
 
 
-def _launch(name: str, table: torch.Tensor,
-            shards: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, table: torch.Tensor, shards: torch.Tensor,
+            rows: Optional[int] = None,
+            dtype: torch.dtype = torch.uint8) -> torch.Tensor:
     """Launch kernel ``name`` (a source of ``csrc/``) on CUDA tensors and
-    return its output; raises on a failed build or launch.  An empty
-    output is returned without a launch."""
+    return its output ``[B, rows, S]`` of ``dtype`` (``rows`` defaults to
+    R); raises on a failed build or launch.  An empty output is returned
+    without a launch."""
     if shards.device.type != "cuda" or table.device != shards.device:
         raise ErasureError(f"{name} takes CUDA tensors on one device, got "
                            f"{table.device} and {shards.device}")
     r, k, _ = table.shape
     b, _, s = shards.shape
-    out = torch.empty((b, r, s), dtype=torch.uint8, device=shards.device)
+    out = torch.empty((b, r if rows is None else rows, s), dtype=dtype,
+                      device=shards.device)
     if out.numel() == 0:
         return out
     table = table.contiguous()
@@ -236,6 +251,78 @@ def apply_selected(table: torch.Tensor, shards: torch.Tensor,
     if packed and packed_geometry_ok(r, k, shards.shape[2]):
         return apply_matrix_packed(table, shards)
     return apply_matrix(table, shards)
+
+
+#: largest K whose counts ``accumulate`` keeps exact in int16 lanes
+ACC_MAX_K = 4095
+
+
+def _check_acc(table: torch.Tensor, shards: torch.Tensor) -> None:
+    _check(table, shards)
+    if table.shape[1] > ACC_MAX_K:
+        raise ErasureError(f"accumulate takes K <= {ACC_MAX_K}, got "
+                           f"{table.shape[1]}")
+
+
+def accumulate_plain(table: torch.Tensor,
+                     shards: torch.Tensor) -> torch.Tensor:
+    """The plain version of the accumulator kernel on any device: int16
+    ``[B, 8R, S]`` with ``acc[b, bit*R + i, s] = sum over k, j of
+    bit_bit(table[i, k, j]) * bit_j(shards[b, k, s])``, the sums of 0/1
+    products taken in int16 (at most 8K ones).  The bit-major row order is
+    the JAX package's, not the ``i*8 + b`` order of
+    ``apply_matrix_plain``."""
+    _check_acc(table, shards)
+    r, k, _ = table.shape
+    n_parts, _, s = shards.shape
+    dev = shards.device
+    out = torch.zeros((n_parts, 8 * r, s), dtype=torch.int16, device=dev)
+    if out.numel() == 0:
+        return out
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+    # m2[bit*R + i, k*8 + j] = bit ``bit`` of table[i, k, j]
+    m2 = (table.to(dev)[None] >> shifts[:, None, None, None]) & 1
+    m2 = m2.reshape(8 * r, k * 8).to(torch.int16)
+    slab = max(1, _PLAIN_SLAB_BYTES // max(1, s * (k * 8 + r * 8 * 4)))
+    for lo in range(0, n_parts, slab):
+        part = shards[lo:lo + slab]
+        bits = ((part[:, :, None, :] >> shifts[None, None, :, None]) & 1)
+        bits = bits.reshape(part.shape[0], k * 8, s).to(torch.int16)
+        acc = out[lo:lo + slab]
+        for c in range(k * 8):
+            acc += m2[None, :, c, None] * bits[:, None, c, :]
+    return out
+
+
+def accumulate(table: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
+    """int16 ``[B, 8R, S]`` bit-major popcounts before the mod 2: the
+    kernel for a CUDA tensor, the plain version for a CPU tensor.  B, R
+    or S of 0 return an empty result without a launch."""
+    global ACC_LAUNCHES
+    _check_acc(table, shards)
+    if shards.device.type == "cpu":
+        return accumulate_plain(table, shards)
+    out = _launch("gf_acc", table, shards, rows=8 * table.shape[0],
+                  dtype=torch.int16)
+    if out.numel():
+        with _COUNT_LOCK:
+            ACC_LAUNCHES += 1
+    return out
+
+
+def pack_acc(acc: torch.Tensor) -> torch.Tensor:
+    """Bit-major popcounts ``[B, 8R, S]`` (any integer dtype) -> uint8
+    ``[B, R, S]``: bit ``bit`` of byte-row i is the parity of row
+    ``bit*R + i`` (the counterpart of ``pack_acc_bitmajor``).  Plain torch
+    ops on the tensor's device; one uint8 plane at a time."""
+    b, r8, s = acc.shape
+    if r8 % 8:
+        raise ErasureError(f"want [B, 8R, S] popcounts, got {tuple(acc.shape)}")
+    planes = acc.reshape(b, 8, r8 // 8, s)
+    out = (planes[:, 0] & 1).to(torch.uint8)
+    for bit in range(1, 8):
+        out |= ((planes[:, bit] & 1).to(torch.uint8) << bit)
+    return out
 
 
 def _library(name: str):

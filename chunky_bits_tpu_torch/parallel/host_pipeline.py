@@ -347,8 +347,11 @@ class HostPipeline:
         C-contiguous."""
         if not (rows.flags.c_contiguous and out.flags.c_contiguous):
             raise ErasureError("hash_rows_jobs needs contiguous arrays")
-        flat = rows.reshape(-1, rows.shape[-1])
-        oflat = out.reshape(-1, 32)
+        # rows of length 0 hash too: no -1 in the shape, it is ambiguous
+        # for an empty array
+        n = int(np.prod(rows.shape[:-1]))
+        flat = rows.reshape(n, rows.shape[-1])
+        oflat = out.reshape(n, 32)
         hasher = _row_hasher()
         jobs = []
         for lo, hi in _ranges(flat.shape[0], self.threads):
