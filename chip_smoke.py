@@ -95,11 +95,27 @@ KERNELS = ("gf_apply", "gf_apply_packed", "gf_acc", "sha256_rows")
 # FMA) x 1.98 GHz; an SM issues int32 ops on 64 lanes, so 132 x 64 x 1.98e9.
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SM_CLOCK_HZ = 1.98e9
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 
-#: SASS opcode families that do a compression's arithmetic
-ALU_OPCODES = ("SHF", "LOP3", "IADD3", "IMAD", "PRMT", "IADD", "VIADD",
-               "LEA", "SEL")
+#: SASS opcode families that issue to a sub-partition's integer pipe, 16
+#: lanes wide, so one every other cycle for a warp (IMAD goes to the FMA
+#: pipe)
+INT_PIPE_OPCODES = ("SHF", "LOP3", "IADD3", "PRMT", "IADD", "LEA", "SEL",
+                    "ISETP")
+
+
+def sha_chain_floor(mix: dict, per_pass: int, blocks: int) -> tuple:
+    """The SHA kernel's floor on one warp: ``blocks`` compressions one
+    after another, each taking at least one cycle per instruction of the
+    consumer's loop and two per integer-pipe instruction, at
+    ``SM_CLOCK_HZ``.  Returns (ms, instructions, integer-pipe
+    instructions), the counts per compression."""
+    issued = sum(mix.values()) / per_pass
+    int_pipe = sum(n for op, n in mix.items()
+                   if op in INT_PIPE_OPCODES) / per_pass
+    cycles = max(issued, 2 * int_pipe)
+    return blocks * cycles / SM_CLOCK_HZ * 1e3, issued, int_pipe
 
 
 def log(msg: str) -> None:
@@ -126,8 +142,12 @@ def lost_for(d: int, p: int) -> list[int]:
     return list(range(half)) + list(range(d + p - (p - half), d + p))
 
 
-def time_cuda(torch, fn, reps: int = 5, warm: int = 1) -> float:
-    """Median milliseconds of ``fn`` on the card over ``reps`` runs."""
+def time_cuda(torch, fn, reps: int = 5, warm: int = 1,
+              inner: int = 1) -> float:
+    """Median milliseconds of ``fn`` on the card over ``reps`` runs, each
+    run ``inner`` calls back to back between the events (divided out), so
+    that a kernel of a fraction of a millisecond is not timed by the
+    host's time to launch it."""
     for _ in range(warm):
         fn()
     times = []
@@ -135,18 +155,22 @@ def time_cuda(torch, fn, reps: int = 5, warm: int = 1) -> float:
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / inner)
     return statistics.median(times)
 
 
-def sass_loop_mix(lib: str) -> dict:
-    """Opcode families and their counts in the SHA kernel's loop over
-    16-byte-aligned rows (the loop with 128-bit loads), read from
-    ``cuobjdump -sass`` of the built library: one compression as the
-    card runs it."""
+def sass_loop_mix(lib: str) -> tuple[dict, int]:
+    """Opcode families and their counts in one pass of the SHA kernel's
+    consumer loop, read from ``cuobjdump -sass`` of the built library:
+    the one loop that reads 128-bit words from shared memory and loads
+    nothing from device memory (the producer's loops do).  Returns the
+    mix and the compressions one pass holds (16 shared loads each), so
+    that mix / compressions is one compression's rounds as the card
+    issues them."""
     from chunky_bits_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -162,13 +186,18 @@ def sass_loop_mix(lib: str) -> dict:
     loops = [[op for a, op, _ in ins if int(tgt, 16) <= a <= addr]
              for addr, op, tgt in ins
              if op == "BRA" and tgt and int(tgt, 16) < addr]
-    vec = [body for body in loops
-           if any(op.startswith("LDG") and ".128" in op for op in body)]
-    assert len(vec) == 1, f"want one loop with 128-bit loads, got {len(vec)}"
+    rounds = [body for body in loops
+              if any(op.startswith("LDS") and ".128" in op for op in body)
+              and not any(op.startswith("LDG") for op in body)]
+    assert len(rounds) == 1, (
+        f"want one loop with 128-bit shared loads and no global load, got "
+        f"{len(rounds)}")
     mix: dict[str, int] = {}
-    for op in vec[0]:
+    for op in rounds[0]:
         mix[op.split(".")[0]] = mix.get(op.split(".")[0], 0) + 1
-    return mix
+    lds = sum(1 for op in rounds[0] if op.startswith("LDS") and ".128" in op)
+    assert lds % 16 == 0, f"{lds} shared loads: not whole compressions"
+    return mix, lds // 16
 
 
 def phase_device(torch) -> str:
@@ -197,7 +226,7 @@ def phase_build() -> None:
 def phase_kernels(torch, dev) -> None:
     """Both kernels against their plain versions on the card, byte-exact,
     and against the host oracles."""
-    from chunky_bits_tpu_torch.ops import gf_kernel, matrix, sha256
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
     from chunky_bits_tpu_torch.ops.backend import NumpyBackend
 
     rng = np.random.default_rng(SEED)
@@ -237,25 +266,61 @@ def phase_kernels(torch, dev) -> None:
     torch.cuda.synchronize()
     log(f"gf_apply: {cases} cases equal to the plain version and numpy")
 
-    shapes = [(1, 0), (1, 1), (2, 55), (3, 56), (2, 64), (4, 100), (2, 192),
-              (3, 1000)]
-    for n, s in shapes:
-        rows = np.random.default_rng(s).integers(0, 256, (n, s),
-                                                 dtype=np.uint8)
-        x = torch.from_numpy(rows).to(dev)
+    phase_sha_edges(torch, dev)
+
+
+#: row lengths at the edges of the SHA kernel's padding and producer
+SHA_LENGTHS = (0, 1, 55, 56, 63, 64, 65, 119, 120, 4096 + 777)
+#: rows per launch: one, a block's 32 lanes either side, the fused block
+SHA_ROWS = (1, 31, 33)
+FUSED_ROWS = KERNEL_PARTS * (D + P)
+
+
+def phase_sha_edges(torch, dev) -> None:
+    """The SHA kernel against its plain version and hashlib, byte for
+    byte: every length of ``SHA_LENGTHS`` at 1, 31 and 33 rows, 1,792
+    rows at three lengths, unaligned bases (the byte-wise producer), and
+    the two-source form with gb = 0 and gb > 0."""
+    from chunky_bits_tpu_torch.ops import sha256
+
+    rng = np.random.default_rng(SEED + 1)
+    cases = 0
+
+    def check(x, want_rows: np.ndarray) -> None:
+        nonlocal cases
         got = sha256.sha256_rows(x)
-        assert torch.equal(got, sha256.sha256_rows_plain(x)), (n, s)
-        assert np.array_equal(got.cpu().numpy(), hashlib_rows(rows)), (n, s)
-    a = torch.from_numpy(rng.integers(0, 256, (3, D, 1000),
-                                      dtype=np.uint8)).to(dev)
-    b = torch.from_numpy(rng.integers(0, 256, (3, P, 1000),
-                                      dtype=np.uint8)).to(dev)
-    both = sha256.sha256_parts(a, b)
-    want = hashlib_rows(torch.cat([a, b], dim=1).cpu().numpy())
-    assert np.array_equal(both.cpu().numpy(), want)
+        assert torch.equal(got, sha256.sha256_rows_plain(x)), tuple(x.shape)
+        assert np.array_equal(got.cpu().numpy(), hashlib_rows(want_rows)), (
+            tuple(x.shape))
+        cases += 1
+
+    shapes = [(n, s) for s in SHA_LENGTHS for n in SHA_ROWS]
+    for n, s in shapes + [(4, 100), (2, 192), (3, 1000)]:
+        rows = rng.integers(0, 256, (n, s), dtype=np.uint8)
+        check(torch.from_numpy(rows).to(dev), rows)
+    for s in (64, 120, 4096 + 777):
+        rows = rng.integers(0, 256, (FUSED_ROWS, s), dtype=np.uint8)
+        check(torch.from_numpy(rows).to(dev), rows)
+    for s in (4096, 4096 + 777, 65):  # base 1 byte off 16-byte alignment
+        flat = rng.integers(0, 256, 33 * s + 1, dtype=np.uint8)
+        buf = torch.from_numpy(flat).to(dev)
+        check(buf[1:].view(33, s), flat[1:].reshape(33, s))
+    for s in (1000, 4096):
+        a = torch.from_numpy(rng.integers(0, 256, (3, D, s),
+                                          dtype=np.uint8)).to(dev)
+        flat = torch.from_numpy(rng.integers(0, 256, 3 * P * s + 1,
+                                             dtype=np.uint8)).to(dev)
+        for b in (None, flat[:-1].view(3, P, s), flat[1:].view(3, P, s)):
+            got = sha256.sha256_parts(a, b)
+            rows = a if b is None else torch.cat([a, b], dim=1)
+            want = hashlib_rows(rows.cpu().numpy())
+            assert np.array_equal(got.cpu().numpy(), want), (s, b is None)
+            cases += 1
     torch.cuda.synchronize()
-    log(f"sha256_rows: {len(shapes)} row lengths and the two-source form "
-        f"equal to the plain version and hashlib")
+    log(f"sha256_rows: {cases} cases (lengths {SHA_LENGTHS} at "
+        f"{SHA_ROWS} rows, {FUSED_ROWS} rows, unaligned bases, the "
+        f"two-source form with gb = 0 and gb = {P}) equal to the plain "
+        f"version and hashlib")
 
 
 #: (d, p) of the packed kernel's gate corners and interior geometries
@@ -878,11 +943,10 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
     sha_err = int((digests.int() - held[0].int()).abs().max())
     del held, rows
     blocks = sha256.blocks_per_row(s)
-    mix = sass_loop_mix(_build.library_path("sha256_rows"))
-    compiled = sum(n for op, n in mix.items() if op in ALU_OPCODES)
-    per_block = min(sha256.OPS_PER_BLOCK, compiled)
+    mix, per_pass = sass_loop_mix(_build.library_path("sha256_rows"))
+    chain_ms, issued, int_pipe = sha_chain_floor(mix, per_pass, blocks)
     nbytes = rows_n * s + rows_n * 32
-    ops = rows_n * blocks * per_block
+    ops = rows_n * blocks * sha256.OPS_PER_BLOCK
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     sha = {"name": "sha256_rows", "route": "cuda",
@@ -892,20 +956,28 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None, "shape": [rows_n, s],
-           "ops_per_block": per_block, "sass_loop": mix}
+           "ops_per_block": sha256.OPS_PER_BLOCK,
+           "chain_floor_ms": chain_ms,
+           "consumer_instructions_per_block": issued,
+           "consumer_int_pipe_per_block": int_pipe, "sass_loop": mix}
     with ThreadPoolExecutor() as pool:
         t0 = time.perf_counter()
         list(pool.map(lambda r: hashlib.sha256(r).digest(), host_rows))
         host_ms = (time.perf_counter() - t0) * 1e3
-    log(f"sha256_rows compiled loop, one compression: {compiled} ALU "
-        f"instructions ({mix}); counted by hand {sha256.OPS_PER_BLOCK}")
-    log(f"sha256_rows [{rows_n}, {s}]: {ms_sha:.1f} ms; bound "
+    log(f"sha256_rows consumer loop, one compression: {issued:.1f} "
+        f"instructions, {int_pipe:.1f} of them on the integer pipe ({mix}, "
+        f"{per_pass} compression(s) a pass); the whole function, counted "
+        f"by hand: {sha256.OPS_PER_BLOCK}")
+    log(f"sha256_rows [{rows_n}, {s}]: {ms_sha:.3f} ms; bound "
         f"{sha['bound_ms']:.3f} ms ({sha['bound_by']}: {ops:.3g} int32 ops"
-        f" at {per_block} a block, {nbytes / 1e9:.2f} GB); hashlib on all "
-        f"host cores {host_ms:.1f} ms; plain version {plain_sha:.1f} ms on "
-        f"the same rows, max_abs_err {sha_err} (tolerance 0: integer "
-        f"arithmetic); all digests equal hashlib; no single PyTorch call "
-        f"computes it")
+        f" at {sha256.OPS_PER_BLOCK} a block on every lane, "
+        f"{nbytes / 1e9:.2f} GB); chain floor {chain_ms:.3f} ms ({blocks} "
+        f"compressions on one warp, each max({issued:.0f} instructions, 2 "
+        f"x {int_pipe:.0f} integer-pipe ones) cycles at "
+        f"{SM_CLOCK_HZ / 1e9:.2f} GHz); hashlib on all host cores "
+        f"{host_ms:.1f} ms; plain version {plain_sha:.1f} ms on the same "
+        f"rows, max_abs_err {sha_err} (tolerance 0: integer arithmetic); "
+        f"all digests equal hashlib; no single PyTorch call computes it")
     return [gf, packed, sha]
 
 
@@ -957,6 +1029,7 @@ def phase_acc_kernel(torch, dev) -> None:
     buf = torch.from_numpy(rng.integers(0, 256, 3 * g.d * 4096 + 1,
                                         dtype=np.uint8)).to(dev)
     check(enc[g.d:], buf[1:].view(3, g.d, 4096))
+    cases += phase_acc_edges(torch, dev)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     x = torch.randint(0, 256, (ACC_PARTS, g.d, g.chunk), generator=gen,
@@ -995,6 +1068,67 @@ def phase_acc_kernel(torch, dev) -> None:
         f"{g.chunk}] and its {TP} tp ranks included; the packed sum of the "
         f"rank partials equals gf_apply and numpy, and the packed "
         f"{len(g.lost)}-erasure decode equals gf_apply and the lost rows")
+
+
+#: K2's edge cases: input rows around the k-steps of 4 (and a chunk of
+#: 128 rows), output rows whose 8R is not a multiple of 16 (p = 1, 3) or
+#: spans two blocks of 64 rows (p = 9), lengths around the 32-column unit
+ACC_KS = (1, 4, 5, 20, 31, 32, 33)
+ACC_PS = (1, 3, 6)
+ACC_LENGTHS = (1, 7, 777, 4097)
+
+
+def phase_acc_edges(torch, dev) -> int:
+    """K2 against its plain version (int16 element for element) and a
+    numpy count at its edges: every K of ``ACC_KS`` by every p of
+    ``ACC_PS`` and S of ``ACC_LENGTHS`` at B = 3; p = 9; K = 130 (two
+    chunks of the weight) and K = 4095 (32 chunks) on all-0xFF bytes, the
+    counts in the thousands; an unaligned base.  Returns the cases."""
+    from chunky_bits_tpu_torch.ops import gf_kernel
+
+    rng = np.random.default_rng(SEED + 8)
+    cases = 0
+
+    def check(mat: np.ndarray, x, data: np.ndarray) -> None:
+        nonlocal cases
+        table = gf_kernel.to_device_matrix(mat, dev)
+        got = gf_kernel.accumulate(table, x)
+        assert torch.equal(got, gf_kernel.accumulate_plain(table, x)), (
+            mat.shape, tuple(x.shape))
+        m2 = gf_kernel.acc_weight(table).cpu().numpy().astype(np.int32)
+        bits = np.unpackbits(data[..., None], axis=-1,
+                             bitorder="little")  # [B, K, S, 8]
+        bits = bits.transpose(0, 1, 3, 2).reshape(data.shape[0], -1,
+                                                  data.shape[2])
+        want = np.einsum("ok,bks->bos", m2, bits.astype(np.int32))
+        assert np.array_equal(got.cpu().numpy(), want), (mat.shape,
+                                                         data.shape)
+        cases += 1
+
+    def rand(shape):
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    for k in ACC_KS:
+        for p in ACC_PS:
+            mat = rand((p, k))
+            for s in ACC_LENGTHS:
+                data = rand((3, k, s))
+                check(mat, torch.from_numpy(data).to(dev), data)
+    for p, k, s in ((9, 5, 777), (2, 130, 777)):
+        data = rand((3, k, s))
+        check(rand((p, k)), torch.from_numpy(data).to(dev), data)
+    data = np.full((1, 4095, 40), 0xFF, dtype=np.uint8)
+    check(np.full((1, 4095), 0xFF, dtype=np.uint8),
+          torch.from_numpy(data).to(dev), data)
+    flat = rand(3 * 20 * 4097 + 1)
+    buf = torch.from_numpy(flat).to(dev)
+    check(rand((6, 20)), buf[1:].view(3, 20, 4097),
+          flat[1:].reshape(3, 20, 4097))
+    torch.cuda.synchronize()
+    log(f"gf_acc edges: {cases} cases (K {ACC_KS} x p {ACC_PS} x S "
+        f"{ACC_LENGTHS}, p = 9, K = 130 and 4095, an unaligned base) equal "
+        f"to its plain version and numpy")
+    return cases
 
 
 def phase_mesh(torch, dev, be, rec: DispatchRecorder, path,
@@ -1091,7 +1225,8 @@ def phase_acc_timings(torch, dev) -> dict:
         ms[which].append(time_cuda(torch, lambda: fn(t_full, x)))
     k2_rank = time_cuda(torch, lambda: gf_kernel.accumulate(tables[0],
                                                             ranks[0]))
-    k2_one = time_cuda(torch, lambda: gf_kernel.accumulate(tables[0], one))
+    k2_one = time_cuda(torch, lambda: gf_kernel.accumulate(tables[0], one),
+                       inner=10)
     partials = [gf_kernel.accumulate(t, r) for t, r in zip(tables, ranks)]
     k1 = gf_kernel.apply_matrix(t_full, x)
 

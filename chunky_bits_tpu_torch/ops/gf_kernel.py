@@ -25,10 +25,15 @@ as ``apply_m2_bitmajor`` does in the JAX package.
 popcounts in the JAX package's bit-major row order (row ``bit*R + i`` is
 bit ``bit`` of output byte-row i), through ``csrc/gf_acc.cu`` (the port of
 ``pallas_kernels.py::_build_kernel(pack=False)``, ``acc_m2_bitmajor``).
-Counts of column blocks of one matrix add, so the ``tp`` layout of the
-mesh sums its ranks' partials and packs once with ``pack_acc`` (the
-counterpart of ``pack_acc_bitmajor``, plain torch ops).  Its plain version
-is ``accumulate_plain``.
+The kernel counts on the int8 tensor cores: the weight ``acc_weight``
+(``[8R, 8K]`` of 0/1) in shared memory as ``mma.sync`` A fragments, the
+data's bit-planes built in registers as B fragments, int32 sums stored as
+int16 in 16-byte stores.  Its bound is the bytes, since it writes 16 bytes
+per output byte-row and column: ~1.0 ms at a config-5 tp rank
+``[8, 5, 4 MiB]`` at 3.35 TB/s.  Counts of column blocks of one matrix add,
+so the ``tp`` layout of the mesh sums its ranks' partials and packs once
+with ``pack_acc`` (the counterpart of ``pack_acc_bitmajor``, plain torch
+ops).  Its plain version is ``accumulate_plain``.
 
 ``LAUNCHES``, ``PACKED_LAUNCHES`` and ``ACC_LAUNCHES`` count the three
 kernels' launches, and nothing else.
@@ -264,6 +269,18 @@ def _check_acc(table: torch.Tensor, shards: torch.Tensor) -> None:
                            f"{table.shape[1]}")
 
 
+def acc_weight(table: torch.Tensor) -> torch.Tensor:
+    """The accumulator's 0/1 weight, uint8 ``[8R, 8K]`` on the table's
+    device: ``M2[bit*R + i, k*8 + j]`` is bit ``bit`` of
+    ``table[i, k, j]``.  Rows in the JAX package's bit-major order
+    (``bit_matrix_bitmajor``), columns ``k*8 + j``: bit j of input byte-row
+    k, the order of the kernel's A fragments."""
+    r, k, _ = table.shape
+    shifts = torch.arange(8, device=table.device, dtype=torch.uint8)
+    m2 = (table[None] >> shifts[:, None, None, None]) & 1
+    return m2.reshape(8 * r, k * 8)
+
+
 def accumulate_plain(table: torch.Tensor,
                      shards: torch.Tensor) -> torch.Tensor:
     """The plain version of the accumulator kernel on any device: int16
@@ -280,9 +297,7 @@ def accumulate_plain(table: torch.Tensor,
     if out.numel() == 0:
         return out
     shifts = torch.arange(8, device=dev, dtype=torch.uint8)
-    # m2[bit*R + i, k*8 + j] = bit ``bit`` of table[i, k, j]
-    m2 = (table.to(dev)[None] >> shifts[:, None, None, None]) & 1
-    m2 = m2.reshape(8 * r, k * 8).to(torch.int16)
+    m2 = acc_weight(table.to(dev)).to(torch.int16)
     slab = max(1, _PLAIN_SLAB_BYTES // max(1, s * (k * 8 + r * 8 * 4)))
     for lo in range(0, n_parts, slab):
         part = shards[lo:lo + slab]

@@ -7,8 +7,14 @@
 hashes data and parity shards without concatenating them.
 
 * For a CUDA tensor these launch ``csrc/sha256_rows.cu`` (the port of the
-  device SHA in ``chunky_bits_tpu/ops/sha256_jax.py``; its source note
-  gives the bound on an H100) or raise.
+  device SHA in ``chunky_bits_tpu/ops/sha256_jax.py``) or raise.  A row
+  is a lane; a block of two warps serves 32 rows, the producer warp
+  loading the message blocks and expanding the schedule into shared
+  memory, the consumer warp running only the 64 rounds.  Each row's
+  compressions are one dependent chain, so a launch of few rows (the
+  fused ingest's 1,792 fill 56 warps) is bound by the cycles one
+  compression's rounds take on one warp, not by the card's lanes or
+  bytes; the source note gives both bounds.
 * For a CPU tensor they run ``sha256_rows_plain``: the same rounds in
   torch, vectorised over rows.  It computes in int64 lanes masked to 32
   bits, since torch's CPU build has no ``>>``, ``<<``, ``+`` or ``~`` for
@@ -51,8 +57,8 @@ _H0 = (0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
        0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19)
 _M = 0xFFFFFFFF
 
-#: instructions one compression needs on sm_90, the count behind the
-#: kernel's operation bound.  A 3-input LOP3 or IADD3 and a funnel shift
+#: instructions one compression needs on sm_90 (producer and consumer
+#: together), the count behind the kernel's operation bound.  A 3-input LOP3 or IADD3 and a funnel shift
 #: (SHF) are one instruction each.  A round is 14: Σ0 and Σ1 are 3 SHF and
 #: a 3-way XOR (LOP3) each, Ch and Maj one LOP3 each, T1's five terms two
 #: IADD3 (K is an immediate), e and a one IADD3 each.  A schedule step is

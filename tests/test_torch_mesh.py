@@ -288,6 +288,43 @@ def test_accumulate_plain_equals_acc_m2_bitmajor():
     assert np.array_equal(gf_kernel.pack_acc(total).numpy(), parity)
 
 
+@pytest.mark.parametrize("d,p", [(20, 6), (5, 6), (1, 3), (33, 1)])
+def test_acc_weight_equals_bit_matrix_bitmajor(d, p):
+    """K2's weight (the kernel's A fragments hold it) is the JAX package's
+    bit-major bit-matrix with its columns ``bit*K + k`` reordered to
+    ``k*8 + bit``."""
+    from chunky_bits_tpu.ops.pallas_kernels import bit_matrix_bitmajor
+
+    mat = np.random.default_rng(d * 10 + p).integers(0, 256, (p, d),
+                                                     dtype=np.uint8)
+    got = gf_kernel.acc_weight(gf_kernel.to_device_matrix(mat, "cpu"))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (8 * p, 8 * d)
+    cols = [bit * d + k for k in range(d) for bit in range(8)]
+    assert np.array_equal(got.numpy(), bit_matrix_bitmajor(mat)[:, cols])
+
+
+@pytest.mark.parametrize("d,p,b", [(20, 6, 2), (5, 6, 1), (5, 1, 3)])
+def test_acc_weight_product_equals_acc_m2_bitmajor(d, p, b):
+    """The product the kernel computes on the tensor cores, ``M2 @ bits``
+    with bit j of input row k at row ``k*8 + j``, taken in int32 with
+    numpy, equals the Pallas kernel in interpret mode element for
+    element."""
+    import jax.numpy as jnp
+
+    from chunky_bits_tpu.ops.pallas_kernels import (acc_m2_bitmajor,
+                                                    bitmajor_device_matrix)
+
+    mat = jmatrix.build_encode_matrix(20, 6)[20:20 + p, :d]
+    data = _data(b, d, 256, 17 + d)
+    m2 = gf_kernel.acc_weight(gf_kernel.to_device_matrix(mat, "cpu"))
+    bits = np.unpackbits(data[..., None], axis=-1, bitorder="little")
+    bits = bits.transpose(0, 1, 3, 2).reshape(b, 8 * d, 256)
+    got = m2.numpy().astype(np.int32) @ bits.astype(np.int32)
+    want = np.asarray(acc_m2_bitmajor(bitmajor_device_matrix(mat),
+                                      jnp.asarray(data), interpret=True))
+    assert np.array_equal(got, want.astype(np.int32))
+
+
 @pytest.mark.parametrize("d,p,b,s", [(20, 6, 1, 1), (5, 6, 3, 777),
                                      (3, 2, 2, 97)])
 def test_accumulate_plain_equals_bitplane_acc_at_odd_s(d, p, b, s):

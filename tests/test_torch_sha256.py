@@ -1,8 +1,9 @@
 """The port's per-row SHA-256 against hashlib and the JAX package's device
 SHA (``sha256_rows_device``, run on the CPU as its own tests run it).
 
-Exact byte equality at the row lengths of tests/test_sha256_jax.py, FIPS
-padding included.
+Exact byte equality at the row lengths of tests/test_sha256_jax.py and at
+the edges of the CUDA kernel's padding, FIPS padding included.  The
+kernel itself runs only on a card (``-m cuda``).
 """
 
 import hashlib
@@ -16,7 +17,11 @@ from chunky_bits_tpu_torch.errors import ErasureError
 from chunky_bits_tpu_torch.ops import sha256
 
 SHAPES = [(1, 0), (1, 1), (2, 55), (3, 56), (2, 64), (4, 100), (2, 192),
-          (3, 1000)]
+          (3, 1000),
+          # the edges of the kernel's padding and its producer warps: one
+          # byte short of and past a block, a tail that takes two blocks,
+          # and a row of many blocks with a ragged tail
+          (2, 63), (2, 65), (2, 119), (2, 120), (1, 4096 + 777)]
 
 
 def _hashlib_rows(rows: np.ndarray) -> np.ndarray:
@@ -69,3 +74,24 @@ def test_rejects_bad_rows():
     with pytest.raises(ErasureError):
         sha256.sha256_parts(torch.zeros((2, 3, 4), dtype=torch.uint8),
                             torch.zeros((3, 1, 4), dtype=torch.uint8))
+
+
+@pytest.mark.cuda
+def test_kernel_edges_on_the_card():
+    """On a CUDA tensor the wrapper launches the kernel (one count a call)
+    and gives hashlib's digests at the padding edges, at 1, 31 and 33 rows
+    (a block of 32 lanes either side) and from an unaligned base."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(5)
+    for n in (1, 31, 33):
+        for _, s in SHAPES:
+            rows = rng.integers(0, 256, (n, s), dtype=np.uint8)
+            before = sha256.LAUNCHES
+            got = sha256.sha256_rows(torch.from_numpy(rows).cuda())
+            assert sha256.LAUNCHES == before + 1
+            assert np.array_equal(got.cpu().numpy(), _hashlib_rows(rows))
+    flat = rng.integers(0, 256, 33 * 4096 + 1, dtype=np.uint8)
+    got = sha256.sha256_rows(torch.from_numpy(flat).cuda()[1:].view(33, 4096))
+    assert np.array_equal(got.cpu().numpy(),
+                          _hashlib_rows(flat[1:].reshape(33, 4096)))
