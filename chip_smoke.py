@@ -4,12 +4,15 @@
     python3 chip_smoke.py              # one card, every phase below
     python3 chip_smoke.py --all-gpus   # the mesh backends over every card
 
-Builds the four kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
+Builds the five kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
 at first use, into ``chunky_bits_tpu_torch/_build/``) and holds each
 against its plain PyTorch version on the card, byte for byte (int16
-element for element for the accumulator K2); the packed GF kernel also
-against ``gf_apply`` and numpy at its gate's corners, K2's packed rank
-partials against ``gf_apply`` and numpy at BASELINE.md config 5.  Then it
+element for element for the accumulator K2): K1 (``gf_apply``) also
+against numpy at its edges (R 1-9 and 16, K 1-33, 64 and 255, S 1-4097,
+unaligned input and output); the packed GF kernel against ``gf_apply`` and
+numpy at its gate's corners; the reduce-and-pack (``gf_acc_pack``) against
+a numpy sum and pack at tp 1, 2, 4 and 8; K2's rank partials, reduced and
+packed, against ``gf_apply`` and numpy at BASELINE.md config 5.  Then it
 drives the main paths:
 
 * the erasure plane at the repo's geometry (d=10, p=4, 1 MiB chunks):
@@ -35,13 +38,16 @@ drives the main paths:
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
-mesh block launches one kernel per logical device with work).  Then it
-times each kernel beside its plain version and its bound; the SHA bound
+mesh block launches one kernel per logical device with work, and a tp
+block one reduce-and-pack per 'dp' group).  Then it times each kernel
+beside its plain version and its bound (K1 also at the one-part shapes of
+the read dispatches and at config 5's stripe); the SHA bound
 counts the instructions of one compression, checked against the compiled
 loop (``cuobjdump -sass``).
 
-Every phase raises on failure; nothing is caught.  The last lines are a
-JSON object per kernel and ``{"ok": true, "device": {...}}``.  Without
+Every phase raises on failure; nothing is caught.  The last lines are
+the card's name and power limit, one JSON object with a row per kernel,
+and ``{"ok": true, "device": {...}}``.  Without
 CUDA it exits 2 and prints no result.  Imports nothing of JAX or of
 ``chunky_bits_tpu``.
 """
@@ -88,15 +94,32 @@ CONFIG5 = Geometry(20, 6, 4 << 20, (0, 5, 9, 21, 23, 25))
 ACC_PARTS, TP = 8, 4
 
 #: every kernel of the port, by the name its launch count goes under
-KERNELS = ("gf_apply", "gf_apply_packed", "gf_acc", "sha256_rows")
+KERNELS = ("gf_apply", "gf_apply_packed", "gf_acc", "gf_acc_pack",
+           "sha256_rows")
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and dense int8 tensor
 # ops/s.  The sheet's 67 TFLOP/s of float32 is 132 SMs x 128 lanes x 2 (an
 # FMA) x 1.98 GHz; an SM issues int32 ops on 64 lanes, so 132 x 64 x 1.98e9.
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
+# The sheet gives no rate for the binary (b1) tensor cores.  Their mma
+# shapes take k = 256 one-bit products where the int8 ones take k = 32 at
+# the same m x n and issue rate, so a GF(2) product's AND-POPC MACs are
+# counted at eight times the int8 rate.
+B1_TENSOR_OPS_PER_S = 8 * INT8_TENSOR_OPS_PER_S
 SM_CLOCK_HZ = 1.98e9
 INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+
+
+def gf_apply_bound(n: int, k: int, r: int, s: int,
+                   table_bytes: int = 0) -> tuple[float, str]:
+    """K1's least time in ms for ``[n, k, s] -> [n, r, s]``, and what sets
+    it: each byte read and written once at the HBM rate, or the 0/1
+    bit-matrix product's ``(8r) x (8k)`` MACs per column on the b1 tensor
+    cores, whichever is longer."""
+    t_bytes = (n * (k + r) * s + table_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * (8 * r) * (8 * k) * n * s / B1_TENSOR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 #: SASS opcode families that issue to a sub-partition's integer pipe, 16
 #: lanes wide, so one every other cycle for a warp (IMAD goes to the FMA
@@ -120,6 +143,14 @@ def sha_chain_floor(mix: dict, per_pass: int, blocks: int) -> tuple:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def stamp(label: str) -> None:
+    """Log the seconds since the script started, after ``label``."""
+    log(f"[{time.perf_counter() - _START:.1f} s] {label} done")
 
 
 def gib_s(nbytes: int, seconds: float) -> float:
@@ -266,7 +297,134 @@ def phase_kernels(torch, dev) -> None:
     torch.cuda.synchronize()
     log(f"gf_apply: {cases} cases equal to the plain version and numpy")
 
+    phase_apply_edges(torch, dev)
     phase_sha_edges(torch, dev)
+
+
+#: K1's edge cases: output rows around its passes of 4 and 8 byte-rows,
+#: input rows around its k-steps of 16 and 32 rows and up to 255, lengths
+#: around its 16-byte words and 128-column units
+APPLY_RS = tuple(range(1, 10)) + (16,)
+APPLY_KS = tuple(range(1, 34)) + (64, 255)
+APPLY_LENGTHS = (1, 15, 16, 17, 127, 128, 129, 777, 4096, 4097)
+
+
+def phase_apply_edges(torch, dev) -> int:
+    """K1 against its plain version and numpy, byte for byte: every R of
+    ``APPLY_RS`` by every K of ``APPLY_KS`` (S taken in turn from
+    ``APPLY_LENGTHS``, B 1 and 3 in turn); every S at four (R, K); the
+    input, the output and both off 16-byte alignment (the C interface
+    called directly for an unaligned output); and config 5's
+    ``[8, 20, 4 MiB]``.  Returns the cases."""
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
+    from chunky_bits_tpu_torch.ops.backend import NumpyBackend
+
+    rng = np.random.default_rng(SEED + 9)
+    oracle = NumpyBackend()
+    fn, _ = gf_kernel._library("gf_apply")
+    cases = 0
+
+    def check(mat: np.ndarray, data: np.ndarray, x=None, out_offset=None):
+        nonlocal cases
+        table = gf_kernel.to_device_matrix(mat, dev)
+        if x is None:
+            x = torch.from_numpy(data).to(dev)
+        b, k, s = x.shape
+        if out_offset is None:
+            got = gf_kernel.apply_matrix(table, x)
+        else:  # an output base off alignment: the C interface itself
+            buf = torch.empty(b * mat.shape[0] * s + out_offset,
+                              dtype=torch.uint8, device=dev)
+            got = buf[out_offset:].view(b, mat.shape[0], s)
+            assert fn(table.data_ptr(), x.data_ptr(), got.data_ptr(), b, k,
+                      mat.shape[0], s,
+                      torch.cuda.current_stream(dev).cuda_stream) == 0
+        assert torch.equal(got, gf_kernel.apply_matrix_plain(table, x)), (
+            mat.shape, tuple(x.shape))
+        assert np.array_equal(got.cpu().numpy(),
+                              oracle.apply_matrix(mat, data)), (
+            mat.shape, data.shape)
+        cases += 1
+
+    n = 0
+    for r in APPLY_RS:
+        for k in APPLY_KS:
+            s = APPLY_LENGTHS[n % len(APPLY_LENGTHS)]
+            b = 1 + 2 * (n % 2)
+            n += 1
+            check(rng.integers(0, 256, (r, k), dtype=np.uint8),
+                  rng.integers(0, 256, (b, k, s), dtype=np.uint8))
+    for r, k in ((4, 10), (6, 20), (9, 33), (1, 1)):
+        for s in APPLY_LENGTHS:
+            check(rng.integers(0, 256, (r, k), dtype=np.uint8),
+                  rng.integers(0, 256, (1, k, s), dtype=np.uint8))
+    for r, k, s in ((4, 10, 4096), (6, 20, 4097), (3, 40, 1000)):
+        mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
+        flat = rng.integers(0, 256, 3 * k * s + 1, dtype=np.uint8)
+        x = torch.from_numpy(flat).to(dev)
+        aligned = flat[:-1].reshape(3, k, s)
+        check(mat, flat[1:].reshape(3, k, s), x[1:].view(3, k, s))
+        check(mat, aligned, x[:-1].view(3, k, s), out_offset=1)
+        check(mat, flat[1:].reshape(3, k, s), x[1:].view(3, k, s),
+              out_offset=3)
+    g = CONFIG5
+    enc = matrix.build_encode_matrix(g.d, g.p)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randint(0, 256, (ACC_PARTS, g.d, g.chunk), generator=gen,
+                      dtype=torch.uint8, device=dev)
+    table = gf_kernel.to_device_matrix(enc[g.d:], dev)
+    got = gf_kernel.apply_matrix(table, x)
+    assert torch.equal(got, gf_kernel.apply_matrix_plain(table, x))
+    numpy_windows(enc[g.d:], x.cpu().numpy(), got.cpu().numpy())
+    cases += 1
+    torch.cuda.synchronize()
+    log(f"gf_apply edges: {cases} cases (R {APPLY_RS} x K {APPLY_KS} with S "
+        f"from {APPLY_LENGTHS}, every S at four (R, K), unaligned input "
+        f"and output, config 5 [{ACC_PARTS}, {g.d}, {g.chunk}]) equal to "
+        f"the plain version and numpy")
+    return cases
+
+
+#: tp extents, and (B, R, S) shapes, the reduce-and-pack is checked at
+PACK_TPS = (1, 2, 4, 8)
+PACK_SHAPES = ((1, 6, 777), (3, 4, 4096), (1, 1, 1), (2, 9, 4097))
+
+
+def phase_reduce_pack(torch, dev) -> None:
+    """The reduce-and-pack kernel against its plain version and a numpy
+    sum and pack, byte for byte: every tp of ``PACK_TPS`` at every shape of
+    ``PACK_SHAPES`` with counts up to 8 * 255, and partials off 16-byte
+    alignment (its scalar path)."""
+    from chunky_bits_tpu_torch.ops import gf_kernel
+
+    rng = np.random.default_rng(SEED + 11)
+    cases = 0
+
+    def check(parts, host) -> None:
+        nonlocal cases
+        got = gf_kernel.reduce_pack(parts)
+        assert torch.equal(got, gf_kernel.reduce_pack_plain(parts)), (
+            len(parts), tuple(parts[0].shape))
+        b, r8, s = host[0].shape
+        bits = (np.sum(np.stack(host), axis=0) & 1).reshape(b, 8, r8 // 8, s)
+        want = np.sum(bits.astype(np.uint32) << np.arange(8, dtype=np.uint32)[
+            None, :, None, None], axis=1).astype(np.uint8)
+        assert np.array_equal(got.cpu().numpy(), want), (len(parts), b, s)
+        cases += 1
+
+    for tp in PACK_TPS:
+        for b, r, s in PACK_SHAPES:
+            host = [rng.integers(0, 8 * 255 // tp + 1, (b, 8 * r, s),
+                                 dtype=np.int16) for _ in range(tp)]
+            check([torch.from_numpy(h).to(dev) for h in host], host)
+        host = [rng.integers(0, 2041, 2 * 48 * 4096 + 1, dtype=np.int16)
+                for _ in range(tp)]
+        check([torch.from_numpy(h).to(dev)[1:].view(2, 48, 4096)
+               for h in host], [h[1:].reshape(2, 48, 4096) for h in host])
+    torch.cuda.synchronize()
+    log(f"gf_acc_pack: {cases} cases (tp {PACK_TPS} x (B, R, S) "
+        f"{PACK_SHAPES}, unaligned partials) equal to its plain version and "
+        f"a numpy sum and pack")
 
 
 #: row lengths at the edges of the SHA kernel's padding and producer
@@ -622,7 +780,8 @@ class DispatchRecorder:
     def expected(self) -> dict:
         """Launches the recorded dispatches call for, then cleared: each
         block launches one kernel per logical device with work, K2 on
-        every ('dp', 'tp') device, K1 on every ('dp', 'sp') one."""
+        every ('dp', 'tp') device, K1 on every ('dp', 'sp') one, and one
+        reduce-and-pack per 'dp' group of a tp block."""
         want = {name: 0 for name in KERNELS}
         for b, r, k, s in self.take():
             if b == 0 or r == 0 or s == 0:
@@ -632,6 +791,8 @@ class DispatchRecorder:
                 n = min(block, b - lo)
                 name = "gf_acc" if lay.wide else "gf_apply"
                 want[name] += min(n, lay.dp) * lay.minor
+                if lay.wide:
+                    want["gf_acc_pack"] += min(n, lay.dp)
         return want
 
 
@@ -888,24 +1049,28 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
                   statistics.median(kernel_ms["k1_dec"]))
     k3_ms, k3_ms_dec = (statistics.median(kernel_ms["k3"]),
                         statistics.median(kernel_ms["k3_dec"]))
+    # the plain versions (seconds each) once, after the checks above ran
+    # each of them already
     plain_ms = time_cuda(torch, lambda: gf_kernel.apply_matrix_plain(t_enc, x),
-                         reps=3)
+                         reps=1, warm=0)
     plain_ms_dec = time_cuda(
-        torch, lambda: gf_kernel.apply_matrix_plain(t_dec, y), reps=3)
+        torch, lambda: gf_kernel.apply_matrix_plain(t_dec, y), reps=1, warm=0)
     k3_plain_ms = time_cuda(
-        torch, lambda: gf_kernel.apply_matrix_packed_plain(t_enc, x), reps=3)
+        torch, lambda: gf_kernel.apply_matrix_packed_plain(t_enc, x), reps=1,
+        warm=0)
     k3_plain_ms_dec = time_cuda(
-        torch, lambda: gf_kernel.apply_matrix_packed_plain(t_dec, y), reps=3)
+        torch, lambda: gf_kernel.apply_matrix_packed_plain(t_dec, y), reps=1,
+        warm=0)
     nbytes = b * D * s + b * P * s + t_enc.numel()
-    ops = 2 * (8 * P) * (8 * D) * b * s  # the bit-plane product's int8 MACs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    k1_bound, k1_by = gf_apply_bound(b, D, P, s, t_enc.numel())
+    # K3's own work: the bit-plane product as int8 MACs
+    ops = 2 * (8 * P) * (8 * D) * b * s
     t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
     gf = {"name": "gf_apply", "route": "cuda",
           "source": "chunky_bits_tpu_torch/csrc/gf_apply.cu",
           "replaces": "chunky_bits_tpu/ops/pallas_kernels.py:222",
           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+          "bound_ms": k1_bound, "bound_by": k1_by,
           "library_ms": None, "shape": [b, D, s], "decode_ms": ms_dec,
           "decode_plain_ms": plain_ms_dec}
     log(f"gf_apply [{b}, {D}, {s}] -> [{b}, {P}, {s}]: encode {ms:.3f} ms, "
@@ -914,12 +1079,37 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
         f"({gf['bound_by']}: {nbytes / 1e9:.2f} GB); max_abs_err {err} "
         f"against the plain version (tolerance 0: integer arithmetic); no "
         f"single PyTorch call computes it")
+    # K1 at the other shapes the paths launch it at: one part of configs 2
+    # and 5 (read and resilver dispatches, 10 launches back to back per
+    # timing) and config 5's stripe of 8 parts (the cuda backend's blocks)
+    for label, n, g in (("one_part", 1, CONFIG2), ("one_part_config5", 1,
+                                                   CONFIG5),
+                        ("config5", ACC_PARTS, CONFIG5)):
+        enc = matrix.build_encode_matrix(g.d, g.p)
+        t_g = gf_kernel.to_device_matrix(enc[g.d:], dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        x_g = torch.randint(0, 256, (n, g.d, g.chunk), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        got_g = gf_kernel.apply_matrix(t_g, x_g)
+        assert torch.equal(got_g, gf_kernel.apply_matrix_plain(t_g, x_g))
+        ms_g = time_cuda(torch, lambda: gf_kernel.apply_matrix(t_g, x_g),
+                         inner=10 if n == 1 else 1)
+        bound_g, by_g = gf_apply_bound(n, g.d, g.p, g.chunk, t_g.numel())
+        gf.update({f"{label}_shape": [n, g.d, g.chunk], f"{label}_ms": ms_g,
+                   f"{label}_bound_ms": bound_g, f"{label}_bound_by": by_g})
+        log(f"gf_apply [{n}, {g.d}, {g.chunk}] -> [{n}, {g.p}, {g.chunk}]: "
+            f"{ms_g:.4f} ms, bound {bound_g:.4f} ms ({by_g}); equal to the "
+            f"plain version")
+        del x_g, got_g
     packed = dict(gf, name="gf_apply_packed",
                   source="chunky_bits_tpu_torch/csrc/gf_apply_packed.cu",
                   replaces="chunky_bits_tpu/ops/pallas_kernels.py:157",
                   max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms,
                   decode_ms=k3_ms_dec, decode_plain_ms=k3_plain_ms_dec,
                   gf_apply_ms=ms, gf_apply_decode_ms=ms_dec)
+    for key in [key for key in packed if key.startswith(("one_part",
+                                                          "config5"))]:
+        del packed[key]
     log(f"gf_apply_packed [{b}, {D}, {s}] -> [{b}, {P}, {s}]: encode "
         f"{k3_ms:.3f} ms, 4-erasure decode {k3_ms_dec:.3f} ms (gf_apply "
         f"{ms:.3f} / {ms_dec:.3f} ms in the same turns: "
@@ -1038,17 +1228,12 @@ def phase_acc_kernel(torch, dev) -> None:
     whole = check(enc[g.d:], x)
     assert torch.equal(gf_kernel.pack_acc(whole), k1)
     del whole
-    total = None
-    for t in range(TP):
-        part = check(enc[g.d:, t * kb:(t + 1) * kb],
-                     x[:, t * kb:(t + 1) * kb].contiguous())
-        if total is None:
-            total = part
-        else:
-            total.add_(part)
-        del part
-    parity = gf_kernel.pack_acc(total)
-    del total
+    parts = [check(enc[g.d:, t * kb:(t + 1) * kb],
+                   x[:, t * kb:(t + 1) * kb].contiguous()) for t in range(TP)]
+    parity = gf_kernel.reduce_pack(parts)
+    assert torch.equal(parity, gf_kernel.reduce_pack_plain(parts)), (
+        "reduce_pack != its plain version at config 5")
+    del parts
     assert torch.equal(parity, k1), "packed rank partials != K1"
     numpy_windows(enc[g.d:], x.cpu().numpy(), parity.cpu().numpy())
 
@@ -1065,9 +1250,10 @@ def phase_acc_kernel(torch, dev) -> None:
     torch.cuda.synchronize()
     log(f"gf_acc: {cases} cases equal to its plain version (int16, "
         f"element for element), config 5 [{ACC_PARTS}, {g.d}, "
-        f"{g.chunk}] and its {TP} tp ranks included; the packed sum of the "
-        f"rank partials equals gf_apply and numpy, and the packed "
-        f"{len(g.lost)}-erasure decode equals gf_apply and the lost rows")
+        f"{g.chunk}] and its {TP} tp ranks included; the rank partials "
+        f"through gf_acc_pack equal its plain version, gf_apply and numpy, "
+        f"and the packed {len(g.lost)}-erasure decode equals gf_apply and "
+        f"the lost rows")
 
 
 #: K2's edge cases: input rows around the k-steps of 4 (and a chunk of
@@ -1194,8 +1380,9 @@ def phase_mesh(torch, dev, be, rec: DispatchRecorder, path,
 def phase_acc_timings(torch, dev) -> dict:
     """K2 at the config-5 shapes beside its bound and its plain version;
     K1 on the same stripe in turns with K2 (K1, K2, K2, K1); the tp
-    reduction and pack (plain torch ops) beside their bound.  No single
-    PyTorch call computes K2, so ``library_ms`` is null."""
+    reduce-and-pack kernel beside its bound, its plain version and the
+    torch ops it replaced.  No single PyTorch call computes either, so
+    ``library_ms`` is null."""
     from chunky_bits_tpu_torch.ops import gf_kernel, matrix
 
     g = CONFIG5
@@ -1229,16 +1416,22 @@ def phase_acc_timings(torch, dev) -> dict:
                        inner=10)
     partials = [gf_kernel.accumulate(t, r) for t, r in zip(tables, ranks)]
     k1 = gf_kernel.apply_matrix(t_full, x)
+    red = gf_kernel.reduce_pack(partials)
+    assert torch.equal(red, k1), "reduce_pack != K1"
+    red_err = int((red.int() - gf_kernel.reduce_pack_plain(
+        partials).int()).abs().max())
+    red_ms = time_cuda(torch, lambda: gf_kernel.reduce_pack(partials))
+    red_plain_ms = time_cuda(
+        torch, lambda: gf_kernel.reduce_pack_plain(partials), reps=3)
 
-    def reduce_pack():
-        total = partials[0]  # in place, as the tp path sums
+    def torch_ops():  # the tp path it replaced: in-place int16 sum, pack_acc
+        total = partials[0]
         for q in partials[1:]:
             total.add_(q)
         return gf_kernel.pack_acc(total)
 
-    assert torch.equal(reduce_pack(), k1), "reduction != K1"
-    red_ms = time_cuda(torch, reduce_pack, reps=3)
-    del partials
+    torch_ops_ms = time_cuda(torch, torch_ops, reps=3)
+    del partials, red
 
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1257,8 +1450,10 @@ def phase_acc_timings(torch, dev) -> dict:
     rank_bound, rank_by = acc_bound(b, kb)
     full_bound, _ = acc_bound(b, g.d)
     one_bound, _ = acc_bound(1, kb)
-    red_bound = (TP * b * r8 * s * 2 + b * g.p * s) / HBM_BYTES_PER_S * 1e3
-    k1_bound, _ = bound(b * g.d * s + b * g.p * s, 2 * r8 * 8 * g.d * b * s)
+    red_bytes = (TP * b * r8 * s * 2 + b * g.p * s) / HBM_BYTES_PER_S
+    red_ops = TP * b * r8 * s / INT32_OPS_PER_S  # an XOR per partial count
+    red_bound = max(red_bytes, red_ops) * 1e3
+    k1_bound, _ = gf_apply_bound(b, g.d, g.p, s)
     k1_ms, k2_full = (statistics.median(ms["k1"]),
                       statistics.median(ms["k2"]))
     entry = {"name": "gf_acc", "route": "cuda",
@@ -1273,9 +1468,18 @@ def phase_acc_timings(torch, dev) -> dict:
              "gf_apply_full_stripe_ms": k1_ms,
              "gf_apply_full_stripe_bound_ms": k1_bound,
              "main_path_shape": [1, kb, s], "main_path_ms": k2_one,
-             "main_path_bound_ms": one_bound,
-             "reduce_pack_ms": red_ms, "reduce_pack_bound_ms": red_bound,
-             "turns_ms": ms}
+             "main_path_bound_ms": one_bound, "turns_ms": ms}
+    pack = {"name": "gf_acc_pack", "route": "cuda",
+            "source": "chunky_bits_tpu_torch/csrc/gf_acc_pack.cu",
+            "replaces": "not a TPU kernel: jax.lax.psum over tp "
+                        "(chunky_bits_tpu/parallel/mesh.py:322) + "
+                        "pack_acc_bitmajor "
+                        "(chunky_bits_tpu/ops/pallas_kernels.py:350)",
+            "max_abs_err": red_err, "ms": red_ms, "plain_ms": red_plain_ms,
+            "bound_ms": red_bound,
+            "bound_by": "bytes" if red_bytes >= red_ops else "operations",
+            "library_ms": None, "shape": [TP, b, r8, s],
+            "torch_ops_ms": torch_ops_ms}
     log(f"gf_acc [{b}, {kb}, {s}] -> int16 [{b}, {r8}, {s}] (one tp rank): "
         f"{k2_rank:.3f} ms, bound {rank_bound:.3f} ms ({rank_by}); plain "
         f"{plain_ms:.1f} ms, max_abs_err {err} (tolerance 0: integer "
@@ -1284,9 +1488,13 @@ def phase_acc_timings(torch, dev) -> dict:
     log(f"gf_acc [{b}, {g.d}, {s}] (whole stripe) {k2_full:.3f} ms, bound "
         f"{full_bound:.3f} ms; gf_apply on the same stripe {k1_ms:.3f} ms, "
         f"bound {k1_bound:.3f} ms (turns K1, K2, K2, K1: {ms})")
-    log(f"tp reduction + pack of {TP} int16 partials [{b}, {r8}, {s}] "
-        f"(torch ops): {red_ms:.3f} ms, bound {red_bound:.3f} ms (bytes)")
-    return entry
+    log(f"gf_acc_pack of {TP} int16 partials [{b}, {r8}, {s}]: "
+        f"{red_ms:.3f} ms, bound {red_bound:.3f} ms ({pack['bound_by']}); "
+        f"plain version {red_plain_ms:.3f} ms, max_abs_err {red_err} "
+        f"(tolerance 0: integer arithmetic); the torch ops it replaces "
+        f"(in-place int16 sum, pack_acc) {torch_ops_ms:.3f} ms; no single "
+        f"PyTorch call computes it")
+    return [entry, pack]
 
 
 def phase_all_gpus(torch, devices) -> None:
@@ -1318,9 +1526,11 @@ def phase_all_gpus(torch, devices) -> None:
                      (2 * n + 1, 4097)):
             data = rng.integers(0, 256, (b, g.d, s), dtype=np.uint8)
             gf_kernel.LAUNCHES = gf_kernel.ACC_LAUNCHES = 0
+            gf_kernel.REDUCE_PACK_LAUNCHES = 0
             got = be.apply_matrix(enc[g.d:], data)
             launched = {"gf_apply": gf_kernel.LAUNCHES,
-                        "gf_acc": gf_kernel.ACC_LAUNCHES}
+                        "gf_acc": gf_kernel.ACC_LAUNCHES,
+                        "gf_acc_pack": gf_kernel.REDUCE_PACK_LAUNCHES}
             want = rec.expected()
             assert launched == {k: want[k] for k in launched}, (
                 be.name, b, s, launched, want)
@@ -1336,6 +1546,28 @@ def phase_all_gpus(torch, devices) -> None:
         f"cuda backend and numpy, each with the launches its blocks call "
         f"for")
     dev = devices[0].device
+    # the reduce-and-pack on partials that crossed cards: card t's K2
+    # partial of its column block, copied to the first card
+    table = gf_kernel.to_device_matrix(enc[g.d:], dev)
+    blocks = np.array_split(np.arange(g.d), n)
+    for b, s in ((1, g.chunk + 7), (3, 4097)):
+        data = torch.from_numpy(rng.integers(0, 256, (b, g.d, s),
+                                             dtype=np.uint8))
+        partials = []
+        for ld, cols in zip(devices, blocks):
+            sub = gf_kernel.to_device_matrix(enc[g.d:, cols], ld.device)
+            x = data[:, cols].contiguous().to(ld.device)
+            partials.append(gf_kernel.accumulate(sub, x).to(dev))
+        torch.cuda.synchronize()
+        before = gf_kernel.REDUCE_PACK_LAUNCHES
+        got = gf_kernel.reduce_pack(partials)
+        assert gf_kernel.REDUCE_PACK_LAUNCHES == before + 1
+        assert torch.equal(got, gf_kernel.reduce_pack_plain(partials)), (b, s)
+        assert torch.equal(got, gf_kernel.apply_matrix_plain(
+            table, data.to(dev))), (b, s)
+        log(f"  reduce_pack of {n} partials int16 [{b}, {8 * g.p}, {s}] "
+            f"from {n} cards: equal to reduce_pack_plain and the transform")
+    del partials, got
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     data = torch.randint(0, 256, (ACC_PARTS, g.d, g.chunk), generator=gen,
                          dtype=torch.uint8, device=dev).cpu().numpy()
@@ -1383,6 +1615,8 @@ def main() -> int:
     phase_kernels(torch, dev)
     phase_packed_kernel(torch, dev)
     phase_acc_kernel(torch, dev)
+    phase_reduce_pack(torch, dev)
+    stamp("build and kernel checks")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     data = torch.randint(0, 256, (INGEST_PARTS, D, CHUNK), generator=gen,
@@ -1399,11 +1633,13 @@ def main() -> int:
         gf_kernel.LAUNCHES = 0
         gf_kernel.PACKED_LAUNCHES = 0
         gf_kernel.ACC_LAUNCHES = 0
+        gf_kernel.REDUCE_PACK_LAUNCHES = 0
         sha256.LAUNCHES = 0
         out = fn(*args)
         counts[name] = {"gf_apply": gf_kernel.LAUNCHES,
                         "gf_apply_packed": gf_kernel.PACKED_LAUNCHES,
                         "gf_acc": gf_kernel.ACC_LAUNCHES,
+                        "gf_acc_pack": gf_kernel.REDUCE_PACK_LAUNCHES,
                         "sha256_rows": sha256.LAUNCHES}
         return out
 
@@ -1450,6 +1686,7 @@ def main() -> int:
         want = expected[name]
         want.setdefault("sha256_rows", 0)
         want.setdefault("gf_acc", 0)
+        want.setdefault("gf_acc_pack", 0)
         k1 = want.pop("gf_apply")
         packed_path = name.endswith("_packed")
         want["gf_apply"] = 0 if packed_path else k1
@@ -1457,6 +1694,7 @@ def main() -> int:
     log("erasure plane with the packed kernel: parity and digests on both "
         "ingest routes, rebuilt rows and batcher results equal to the "
         "packed-off run")
+    stamp("erasure plane")
 
     # the object codec: BASELINE.md config 2 (10 GiB) through the writer,
     # packed off and on, then a ~1 GiB object round trip on disk
@@ -1479,6 +1717,7 @@ def main() -> int:
     log("object ingest: file references equal packed off and on")
     check_object_ref(refs[0], blob)
     del refs
+    stamp("config-2 object ingests")
     pipeline = HostPipeline()
     for packed in (False, True):
         be.packed = packed
@@ -1499,7 +1738,9 @@ def main() -> int:
         register_backend(sharded)
         assert get_backend(sharded.name) is sharded
     mesh_rec, tp_rec = DispatchRecorder(mesh_be), DispatchRecorder(tp_be)
+    stamp("config-3 round trips")
     phase_mesh(torch, dev, mesh_be, mesh_rec, path, expected)
+    stamp("mesh layouts")
 
     # BASELINE.md config 5 through cuda:dp2,tp4: a 10 GiB ingest whose
     # reference equals the cuda backend's, then a ~1 GiB round trip on
@@ -1530,9 +1771,11 @@ def main() -> int:
         log(f"launches on {name}: {got}")
     assert counts == expected, (counts, expected)
 
+    stamp("config-5 ingests and round trip")
     kernels = phase_timings(torch, dev, coder, data, parity)
     del data, parity, digests
-    kernels.append(phase_acc_timings(torch, dev))
+    kernels.extend(phase_acc_timings(torch, dev))
+    stamp("timings")
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in counts.values())
         k["launches_by_path"] = {n: c[k["name"]] for n, c in counts.items()}

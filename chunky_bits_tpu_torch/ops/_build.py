@@ -31,7 +31,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: kernel sources, one shared library each
-SOURCES = ("gf_apply", "gf_apply_packed", "gf_acc", "sha256_rows")
+SOURCES = ("gf_apply", "gf_apply_packed", "gf_acc", "gf_acc_pack",
+           "sha256_rows")
 
 #: Hopper only: ``sm_90a`` keeps wgmma/setmaxnreg available to later kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

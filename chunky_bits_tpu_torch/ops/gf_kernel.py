@@ -7,7 +7,9 @@ contract, ``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``, on tensors:
 
 * For a CUDA tensor it launches ``csrc/gf_apply.cu`` (the port of
   ``chunky_bits_tpu/ops/pallas_kernels.py::_build_kernel``; its source
-  note gives the bound on an H100 and the design) or raises.
+  note gives the bound on an H100 and the design: the 0/1 bit-matrix times
+  the data's own bits on the binary tensor cores, ``mma.sync`` b1
+  ``and.popc``) or raises.
 * For a CPU tensor it runs ``apply_matrix_plain``, the port of
   ``chunky_bits_tpu/ops/bitplane.py``: unpack bytes to bits, 0/1 products
   summed in integers, mod 2, pack.  It computes the same bytes on any
@@ -30,13 +32,16 @@ The kernel counts on the int8 tensor cores: the weight ``acc_weight``
 data's bit-planes built in registers as B fragments, int32 sums stored as
 int16 in 16-byte stores.  Its bound is the bytes, since it writes 16 bytes
 per output byte-row and column: ~1.0 ms at a config-5 tp rank
-``[8, 5, 4 MiB]`` at 3.35 TB/s.  Counts of column blocks of one matrix add,
-so the ``tp`` layout of the mesh sums its ranks' partials and packs once
-with ``pack_acc`` (the counterpart of ``pack_acc_bitmajor``, plain torch
-ops).  Its plain version is ``accumulate_plain``.
+``[8, 5, 4 MiB]`` at 3.35 TB/s.  Its plain version is
+``accumulate_plain``.  Counts of column blocks of one matrix add,
+so the ``tp`` layout of the mesh reduces its ranks' partials and packs
+them once: ``reduce_pack(partials)``, one kernel (``csrc/gf_acc_pack.cu``,
+the counterpart of ``psum`` + ``pack_acc_bitmajor``, which XLA fuses) that
+reads each partial once and writes bytes.  Its plain version
+``reduce_pack_plain`` sums in int16 and packs with ``pack_acc``.
 
-``LAUNCHES``, ``PACKED_LAUNCHES`` and ``ACC_LAUNCHES`` count the three
-kernels' launches, and nothing else.
+``LAUNCHES``, ``PACKED_LAUNCHES``, ``ACC_LAUNCHES`` and
+``REDUCE_PACK_LAUNCHES`` count the four kernels' launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ LAUNCHES = 0
 PACKED_LAUNCHES = 0
 #: kernel launches made by ``accumulate`` in this process
 ACC_LAUNCHES = 0
+#: kernel launches made by ``reduce_pack`` in this process
+REDUCE_PACK_LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 
 #: device memory the plain version may use for one slab of parts
@@ -159,14 +166,22 @@ def _launch(name: str, table: torch.Tensor, shards: torch.Tensor,
     return out
 
 
+#: largest K the kernel takes (the coder's stripes are at most 255 wide)
+APPLY_MAX_K = 255
+
+
 def apply_matrix(table: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
     """``out[b, i, s] = XOR_k mat[i, k] (x) shards[b, k, s]``: the kernel
-    for a CUDA tensor, the plain version for a CPU tensor.  B, R or S of
-    0 return an empty result without a launch."""
+    for a CUDA tensor (K <= 255, else ``ErasureError``), the plain version
+    for a CPU tensor.  B, R or S of 0 return an empty result without a
+    launch."""
     global LAUNCHES
     _check(table, shards)
     if shards.device.type == "cpu":
         return apply_matrix_plain(table, shards)
+    if table.shape[1] > APPLY_MAX_K:
+        raise ErasureError(f"apply_matrix takes K <= {APPLY_MAX_K}, got "
+                           f"{table.shape[1]}")
     out = _launch("gf_apply", table, shards)
     if out.numel():
         with _COUNT_LOCK:
@@ -340,6 +355,82 @@ def pack_acc(acc: torch.Tensor) -> torch.Tensor:
     return out
 
 
+#: most partials ``reduce_pack`` takes in one launch (a tp extent)
+PACK_MAX_PARTS = 8
+
+
+def _check_pack(partials) -> tuple[int, int, int]:
+    if not 1 <= len(partials) <= PACK_MAX_PARTS:
+        raise ErasureError(f"reduce_pack takes 1 to {PACK_MAX_PARTS} "
+                           f"partials, got {len(partials)}")
+    first = partials[0]
+    for p in partials:
+        if p.dtype != torch.int16 or p.ndim != 3 or p.shape[1] % 8:
+            raise ErasureError(f"want int16 [B, 8R, S] partials, got "
+                               f"{p.dtype} {tuple(p.shape)}")
+        if p.shape != first.shape or p.device != first.device:
+            raise ErasureError(
+                f"partials differ: {tuple(p.shape)} on {p.device}, "
+                f"{tuple(first.shape)} on {first.device}")
+    b, r8, s = first.shape
+    return b, r8 // 8, s
+
+
+def reduce_pack_plain(partials) -> torch.Tensor:
+    """The plain version of the reduce-and-pack kernel on any device: the
+    partials summed in int16 (into a copy of the first, so no input is
+    written), then ``pack_acc``."""
+    _check_pack(partials)
+    total = partials[0].clone()
+    for p in partials[1:]:
+        total.add_(p)  # int16 in place: no promotion
+    return pack_acc(total)
+
+
+def reduce_pack(partials) -> torch.Tensor:
+    """tp int16 bit-major partials ``[B, 8R, S]`` on one device -> uint8
+    ``[B, R, S]``: bit ``bit`` of byte-row i is the parity of the sum of
+    row ``bit*R + i`` over the partials.  The kernel for CUDA tensors
+    (each partial read once, each byte written once), the plain version
+    for CPU tensors.  B, R or S of 0 return an empty result without a
+    launch."""
+    global REDUCE_PACK_LAUNCHES
+    b, r, s = _check_pack(partials)
+    dev = partials[0].device
+    if dev.type == "cpu":
+        return reduce_pack_plain(partials)
+    if dev.type != "cuda":
+        raise ErasureError(f"reduce_pack takes CUDA or CPU tensors, got {dev}")
+    out = torch.empty((b, r, s), dtype=torch.uint8, device=dev)
+    if out.numel() == 0:
+        return out
+    parts = [p.contiguous() for p in partials]
+    fn, error_string = _library("gf_acc_pack")
+    ptrs = (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptrs, len(parts), out.data_ptr(), b, r, s, stream)
+    if err != 0:
+        raise ErasureError(
+            f"gf_acc_pack launch failed: {error_string(err).decode()}")
+    with _COUNT_LOCK:
+        REDUCE_PACK_LAUNCHES += 1
+    return out
+
+
+#: the C signature of each kernel's launch, ``cb_<name>``: (table, in,
+#: out, B, K, R, S, stream), or for the reduce-and-pack (partials, tp, out,
+#: B, R, S, stream)
+_ARGTYPES = {
+    "gf_acc_pack": [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_void_p],
+}
+_TABLE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p]
+
+
 def _library(name: str):
     """``(launch, error_string)`` of kernel ``name``'s shared library."""
     from chunky_bits_tpu_torch.ops import _build
@@ -351,7 +442,5 @@ def _library(name: str):
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES.get(name, _TABLE_ARGTYPES)
     return fn, err

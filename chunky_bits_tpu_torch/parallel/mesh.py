@@ -10,10 +10,11 @@ and a stream each, so several can share one card):
 * ``tp`` - the stripe axis (wide stripes, BASELINE.md config 5: d=20 p=6):
   the contraction of the GF product splits, each device holds d/tp data
   shards and computes int16 bit-plane popcounts over them
-  (``gf_kernel.accumulate``, K2); the partials of a ``tp`` group are summed
-  in int16 on the group's first device and packed once
-  (``gf_kernel.pack_acc``).  Exact, since GF(2^8) addition is XOR and the
-  global count is at most 8K.
+  (``gf_kernel.accumulate``, K2); the partials of a ``tp`` group are
+  reduced and packed once on the group's first device
+  (``gf_kernel.reduce_pack``, one kernel reading each partial once).
+  Exact, since GF(2^8) addition is XOR: the parity of a count's sum is the
+  XOR of the partials' parities.
 
 The per-device function follows the tensors, with no ``impl`` switch: the
 kernels for CUDA tensors, their plain versions for CPU tensors (the
@@ -235,9 +236,9 @@ def issue_sharded(mesh: Mesh, mat: np.ndarray, shards, *,
 def issue_wide(mesh: Mesh, mat: np.ndarray, shards) -> MeshDispatch:
     """Issue ``mat ⊗ shards`` with B split over 'dp' and the K (stripe)
     axis over 'tp': each rank accumulates int16 popcounts over its K/tp
-    rows (K2), the group's first device sums the partials in int16 once
-    they are ready (``.to()`` brings them over from another GPU; on one
-    card it is a no-op) and packs them."""
+    rows (K2), the group's first device reduces and packs the partials
+    in one kernel once they are ready (``.to()`` brings them over from
+    another GPU; on one card it is a no-op)."""
     src = _host_tensor(shards)
     b, k, s = src.shape
     tp = mesh.shape["tp"]
@@ -265,16 +266,17 @@ def issue_wide(mesh: Mesh, mat: np.ndarray, shards) -> MeshDispatch:
                     ready.record(ld.stream)
                 d.keep += [table, acc]
                 partials.append((ld, acc, ready))
-        lead, total, _ = partials[0]
+        lead = partials[0][0]
         with lead.context():
+            accs = [partials[0][1]]
             for ld, acc, ready in partials[1:]:
                 if ready is not None:
                     lead.stream.wait_event(ready)
                     with ld.context():  # a cross-GPU copy orders both streams
                         acc = acc.to(lead.device, non_blocking=True)
                     d.keep.append(acc)
-                total.add_(acc)  # int16 in place: no promotion
-            y = gf_kernel.pack_acc(total)
+                accs.append(acc)
+            y = gf_kernel.reduce_pack(accs)
             d.pieces.append(((plo, phi), (0, s), _unstage(lead, y, d)))
     return d
 

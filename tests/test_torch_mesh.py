@@ -357,6 +357,95 @@ def test_accumulate_on_the_cpu_counts_no_launch_and_checks_shapes():
         gf_kernel.pack_acc(torch.zeros((1, 12, 5), dtype=torch.int16))
 
 
+# ------------------------------------------------ the tp reduce-and-pack
+
+def _partials(tp, b, r, s, seed):
+    """tp int16 bit-major partials [b, 8r, s], counts up to 8 * 255."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 8 * 255 // tp + 1, (b, 8 * r, s), dtype=np.int16)
+            for _ in range(tp)]
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("b", [1, 3])
+def test_reduce_pack_plain_equals_jax_psum_and_pack(tp, b):
+    """The plain version of the reduce-and-pack, and the wrapper on CPU
+    tensors, equal the JAX package's tp step after the accumulator: a sum
+    of the partials (what ``psum`` over 'tp' computes) and
+    ``pack_acc_bitmajor``.  Odd S; tolerance 0."""
+    import jax.numpy as jnp
+
+    from chunky_bits_tpu.ops.pallas_kernels import pack_acc_bitmajor
+
+    host = _partials(tp, b, 6, 97, 100 * tp + b)
+    parts = [torch.from_numpy(h) for h in host]
+    want = np.asarray(pack_acc_bitmajor(
+        jnp.sum(jnp.stack([jnp.asarray(h) for h in host]), axis=0)))
+    assert want.dtype == np.uint8 and want.shape == (b, 6, 97)
+    got = gf_kernel.reduce_pack_plain(parts)
+    assert got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(gf_kernel.reduce_pack(parts).numpy(), want)
+
+
+def test_reduce_pack_of_rank_partials_equals_the_transform():
+    """K2's partials of the tp ranks of config 5's stripe, reduced and
+    packed, give numpy's parity; the partials are left as they were."""
+    d, p, tp = 20, 6, 4
+    enc = jmatrix.build_encode_matrix(d, p)
+    data = _data(2, d, 129, 21)
+    kb = d // tp
+    parts = [gf_kernel.accumulate(
+        gf_kernel.to_device_matrix(np.ascontiguousarray(
+            enc[d:, t * kb:(t + 1) * kb]), "cpu"),
+        torch.from_numpy(np.ascontiguousarray(data[:, t * kb:(t + 1) * kb])))
+        for t in range(tp)]
+    keep = [q.clone() for q in parts]
+    got = gf_kernel.reduce_pack(parts)
+    assert np.array_equal(got.numpy(), ORACLE.apply_matrix(enc[d:], data))
+    assert all(torch.equal(q, k) for q, k in zip(parts, keep))
+
+
+def test_reduce_pack_on_the_cpu_counts_no_launch_and_checks_partials():
+    before = gf_kernel.REDUCE_PACK_LAUNCHES
+    one = torch.zeros((2, 16, 5), dtype=torch.int16)
+    assert tuple(gf_kernel.reduce_pack([one, one]).shape) == (2, 2, 5)
+    empty = torch.zeros((0, 16, 5), dtype=torch.int16)
+    assert tuple(gf_kernel.reduce_pack([empty]).shape) == (0, 2, 5)
+    assert gf_kernel.REDUCE_PACK_LAUNCHES == before
+    bad = [[], [one] * 9, [one, torch.zeros((2, 16, 6), dtype=torch.int16)],
+           [one.to(torch.int32)], [torch.zeros((2, 12, 5), dtype=torch.int16)]]
+    for partials in bad:
+        with pytest.raises(ErasureError):
+            gf_kernel.reduce_pack(partials)
+
+
+def test_wide_stripe_reduces_through_reduce_pack(monkeypatch):
+    """``issue_wide`` reduces and packs each dp group's partials with one
+    ``reduce_pack`` call of tp partials, and the result stays equal to the
+    JAX function on its virtual mesh."""
+    from chunky_bits_tpu.parallel import make_stripe_mesh as jstripe
+    from chunky_bits_tpu.parallel import wide_apply_sharded as jwide_apply
+
+    calls = []
+    real = gf_kernel.reduce_pack
+
+    def counting(partials):
+        calls.append(len(partials))
+        return real(partials)
+
+    monkeypatch.setattr(gf_kernel, "reduce_pack", counting)
+    d, p = 20, 6
+    enc = jmatrix.build_encode_matrix(d, p)
+    data = _data(4, d, 256, 23)
+    got = mesh.wide_apply_sharded(
+        mesh.make_stripe_mesh(8, dp=2, tp=4, devices=CPU8), enc[d:], data)
+    assert calls == [4, 4]
+    jm = jstripe(8, dp=2, tp=4, devices=_jax_devices())
+    assert np.array_equal(got, np.asarray(jwide_apply(jm, enc[d:], data)))
+    assert np.array_equal(got, ORACLE.apply_matrix(enc[d:], data))
+
+
 # --------------------------------------------------------------- backends
 
 @pytest.fixture(scope="module")
@@ -698,3 +787,25 @@ def test_mesh_backends_over_every_visible_gpu(monkeypatch):
         ex = parallel_backend.MeshCudaBackend(spec, devices=devices)
         assert np.array_equal(ex.apply_matrix(enc[d:], data),
                               ORACLE.apply_matrix(enc[d:], data)), spec
+
+
+@pytest.mark.cuda
+def test_reduce_pack_kernel_on_the_card():
+    """On CUDA tensors the wrapper launches the reduce-and-pack (one count
+    a call) and gives its plain version's bytes at tp 1 to 8, odd S and
+    unaligned partials."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for tp in (1, 2, 4, 8):
+        for b, r, s in ((1, 6, 97), (3, 4, 4096)):
+            parts = [torch.from_numpy(h).cuda()
+                     for h in _partials(tp, b, r, s, tp + s)]
+            before = gf_kernel.REDUCE_PACK_LAUNCHES
+            got = gf_kernel.reduce_pack(parts)
+            assert gf_kernel.REDUCE_PACK_LAUNCHES == before + 1
+            assert torch.equal(got, gf_kernel.reduce_pack_plain(parts))
+        flat = [torch.from_numpy(h.reshape(-1)).cuda()
+                for h in _partials(tp, 1, 2, 4097, tp)]
+        parts = [f[1:1 + 16 * 256].view(1, 16, 256) for f in flat]
+        assert torch.equal(gf_kernel.reduce_pack(parts),
+                           gf_kernel.reduce_pack_plain(parts))
