@@ -34,7 +34,17 @@ drives the main paths:
   d=10 p=4 at b=1: sp8), with the dispatch window's overlap counters;
   config 5 through ``cuda:dp2,tp4``: a 10 GiB ingest whose file reference
   equals the ``cuda`` backend's, and a ~1 GiB round trip over 26 path
-  destinations with shards 0, 5, 9, 21, 23 and 25 of every part lost.
+  destinations with shards 0, 5, 9, 21, 23 and 25 of every part lost;
+* the ``cluster_cli`` group, the port's CLI (``cli.main.main``) in this
+  process over cluster YAMLs on the local disk: config 2 with ``backend:
+  cuda`` (~1 GiB: cp, cat, verify, shards 0, 1, 12 and 13 of every part
+  deleted, verify, resilver, verify, cat, then ls, file-info, get-hashes
+  and find-unused-hashes against the reference on disk); config 5 with
+  the JAX package's ``backend: "jax:dp2,tp4"`` (cp, cat, 6 shards lost,
+  resilver, cat); ``code: pm-msr`` at d=5 p=4 (~256 MiB: cp, cat, one
+  chunk of every part lost, resilver, cat); and ``python -m
+  chunky_bits_tpu_torch`` cp and cat in a subprocess on the default
+  backend.  Every cat equals the source.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -1005,6 +1015,342 @@ def phase_round_trip(blob: bytes, pipeline, path, sfx: str, expect,
     return expected
 
 
+#: the cluster_cli group: a pm-msr object of ~256 MiB at BASELINE.md
+#: config 13's geometry (d=5 p=4, 1 MiB chunks), and the small object the
+#: ``python -m`` entry point copies in a subprocess
+PM_MSR = Geometry(5, 4, CHUNK, ())
+PM_MSR_PARTS = 51
+SMALL_OBJECT = 3 * D * CHUNK + TAIL
+
+
+class ApplyRecorder:
+    """Records the shape ``(B, r, k, S)`` of every ``apply_matrix`` call of
+    the ``cuda`` backend (its encode+hash and every decode pass through
+    it), so a path's K1 launches can be checked against its dispatches:
+    one per block of the walk."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.shapes: list[tuple] = []
+        real = backend.apply_matrix
+
+        def apply_matrix(mat, shards, on_block=None):
+            b, k, s = shards.shape
+            self.shapes.append((b, mat.shape[0], k, s))
+            return real(mat, shards, on_block=on_block)
+
+        backend.apply_matrix = apply_matrix
+
+    def expected(self) -> dict:
+        """Launches the recorded calls call for, then cleared."""
+        shapes, self.shapes = self.shapes, []
+        return expected_gf(self.backend,
+                           [sh for sh in shapes if 0 not in sh], False)
+
+    def close(self) -> None:
+        del self.backend.apply_matrix
+
+
+def run_cli(argv: list[str], out_path: str) -> bytes:
+    """``chunky_bits_tpu_torch.cli.main.main(argv)`` in this process, its
+    standard output sent to ``out_path``; returns that output unless it is
+    a ``cat``.  Raises unless the command exits 0."""
+    import io
+
+    from chunky_bits_tpu_torch.cli.main import main as cli_main
+
+    # an empty config of its own, so no default config file is read
+    config = os.path.join(os.path.dirname(out_path), "config.yaml")
+    open(config, "a").close()
+    saved = sys.stdout
+    with open(out_path, "wb") as raw:
+        sys.stdout = io.TextIOWrapper(raw, write_through=True)
+        try:
+            rc = cli_main(["--config", config] + argv)
+            sys.stdout.flush()
+        finally:
+            sys.stdout.detach()
+            sys.stdout = saved
+    assert rc == 0, (argv, rc)
+    if argv[0] == "cat":
+        return b""
+    with open(out_path, "rb") as f:
+        return f.read()
+
+
+def write_source(path: str, blob: bytes, total: int) -> None:
+    """The first ``total`` bytes of the cyclic stream over ``blob``."""
+    with open(path, "wb") as f:
+        for lo in range(0, total, 64 << 20):
+            f.write(source_slice(blob, lo, min(64 << 20, total - lo)))
+
+
+def same_file(a: str, b: str) -> bool:
+    import filecmp
+
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs"
+                 ) -> str:
+    """A cluster of d+p ``path`` destinations under ``root``, a ``path``
+    metadata store and one profile of ``geo``; ``backend`` None leaves the
+    tunables out (the port's default backend)."""
+    import yaml
+
+    dirs = [os.path.join(root, f"d{i}") for i in range(geo.d + geo.p)]
+    for d in dirs + [os.path.join(root, "meta")]:
+        os.makedirs(d)
+    spec = {
+        "destinations": [{"location": d} for d in dirs],
+        "metadata": {"type": "path", "format": "yaml",
+                     "path": os.path.join(root, "meta")},
+        "profiles": {"default": {
+            "data": geo.d, "parity": geo.p,
+            "chunk_size": geo.chunk.bit_length() - 1, "code": code}},
+    }
+    if backend is not None:
+        spec["tunables"] = {"backend": backend}
+    path = os.path.join(root, "cluster.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(spec, f, sort_keys=False)
+    return path
+
+
+def damage_chunks(meta_file: str, pick) -> list[str]:
+    """Delete the chunk file of ``pick(part_no)``'s shards in every part of
+    the reference in ``meta_file``; each must be a digest no other chunk
+    of the object has (content addressing shares the file of equal
+    chunks).  Returns the deleted paths."""
+    import yaml
+
+    with open(meta_file) as f:
+        ref = yaml.safe_load(f)
+    chunks = [c for part in ref["parts"]
+              for c in part["data"] + part.get("parity", [])]
+    digests = [c["sha256"] for c in chunks]
+    lost = []
+    for i, part in enumerate(ref["parts"]):
+        row = part["data"] + part.get("parity", [])
+        for j in pick(i):
+            assert digests.count(row[j]["sha256"]) == 1, (i, j)
+            lost.append(row[j]["locations"][0])
+            os.remove(lost[-1])
+    return lost
+
+
+def check_resilver(report: str, parts: int) -> None:
+    """A ``resilver`` full report in which every part's lost chunks were
+    rebuilt and written: each part and chunk line reads Valid or
+    Resilvered, and no part carries a rebuild error nor a chunk a write
+    error (the command exits 0 either way)."""
+    lines = report.splitlines()
+    assert lines[0] in ("file\tValid", "file\tResilvered"), lines[0]
+    heads = [ln for ln in lines if ln.startswith("part\t")]
+    assert len(heads) == parts, (len(heads), parts)
+    assert all(ln in ("part\tValid", "part\tResilvered") for ln in heads), \
+        [ln for ln in heads if ln not in ("part\tValid", "part\tResilvered")]
+    assert not [ln for ln in lines if ln.startswith("error\t")], \
+        "resilver failed to write a chunk"
+    bad = [ln for ln in lines if ln.startswith("chunk\t")
+           and ln.split("\t")[1] not in ("Valid", "Resilvered")]
+    assert not bad, bad[:4]
+
+
+def phase_cluster_cli(blob: bytes, path, counts, be, tp_be,
+                      tp_rec) -> dict:
+    """The cluster_cli group: the port's CLI (``cli.main.main``) in this
+    process over cluster YAMLs on the local disk, each step a path of its
+    own for the launch counts.  Config 2 with ``backend: cuda``
+    (cp, cat, verify, damage, verify, resilver, verify, cat, ls, file-info,
+    get-hashes, find-unused-hashes); config 5 with ``backend:
+    "jax:dp2,tp4"`` (the JAX package's spelling of the cuda:dp2,tp4 mesh);
+    pm-msr at d=5 p=4; then ``python -m chunky_bits_tpu_torch`` cp and cat
+    in a subprocess on the default backend.  Each resilver's report must
+    show every lost chunk rebuilt and written, and a verify after it must
+    read Valid.  A step given ``launches`` must have launched each of
+    those kernels, through ``be`` (K1) or ``tp_be`` (K2 and the
+    reduce-and-pack) as their recorders show: the cluster ran on the
+    card."""
+    import json as _json
+    import tempfile
+
+    import yaml
+
+    from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
+                                                        environ_without)
+    from chunky_bits_tpu_torch.ops.backend import get_backend
+
+    expected = {}
+    rec = ApplyRecorder(be)
+
+    def step(name: str, argv: list[str], out: str, nbytes: int = 0,
+             launches: tuple = ()) -> bytes:
+        t0 = time.perf_counter()
+        text = path(name, run_cli, argv, out)
+        dt = time.perf_counter() - t0
+        want, mesh = rec.expected(), tp_rec.expected()
+        expected[name] = {k: want[k] + mesh[k] for k in KERNELS}
+        for k in launches:
+            by = mesh if k in ("gf_acc", "gf_acc_pack") else want
+            assert counts[name][k] > 0 and by[k] > 0, \
+                (name, k, counts[name], want, mesh)
+        log(f"  {argv[0]}: {dt:.2f} s"
+            + (f", {gib_s(nbytes, dt):.2f} GiB/s" if nbytes else ""))
+        return text
+
+    with tempfile.TemporaryDirectory(prefix="cb-cli-") as root:
+        # ---- config 2 through the CLI, backend: cuda ----
+        top = os.path.join(root, "c2")
+        os.makedirs(top)
+        conf = cluster_yaml(top, CONFIG2, "cuda")
+        total = DISK_PARTS * D * CHUNK + TAIL
+        src = os.path.join(root, "src2.bin")
+        write_source(src, blob, total)
+        out = os.path.join(root, "out")
+        txt = os.path.join(root, "stdout.txt")
+        obj = f"{conf}#obj"
+        log(f"cluster_cli config 2: {total / 2**30:.3f} GiB over "
+            f"{D + P} path destinations, backend: cuda")
+        k1 = ("gf_apply",)
+        step("cli_cp", ["cp", src, obj], txt, total, k1)
+        step("cli_cat", ["cat", obj], out, total, k1)
+        assert same_file(src, out), "cat differs from the source"
+        report = step("cli_verify", ["verify", obj], txt, total).decode()
+        assert report.startswith("file\tValid"), report[:200]
+        meta_file = os.path.join(top, "meta", "obj")
+        lost = damage_chunks(meta_file, lambda _i: LOST)
+        report = step("cli_verify_damaged", ["verify", obj], txt).decode()
+        assert report.startswith("file\tDegraded"), report[:200]
+        assert all(f"Unavailable\t{p}" in report for p in lost), \
+            "verify must name every deleted chunk"
+        report = step("cli_resilver", ["resilver", obj], txt,
+                      len(lost) * CHUNK, k1).decode()
+        check_resilver(report, DISK_PARTS + 1)
+        report = step("cli_verify_resilvered", ["verify", obj],
+                      txt).decode()
+        assert report.startswith("file\tValid"), report[:200]
+        step("cli_cat_resilvered", ["cat", obj], out, total, k1)
+        assert same_file(src, out), "cat after resilver differs"
+        with open(meta_file) as f:
+            ref = yaml.safe_load(f)
+        listed = step("cli_ls", ["ls", f"{conf}#."], txt).decode().split()
+        assert listed == [".", "obj"], listed
+        info = _json.loads(step("cli_file_info",
+                                ["file-info", "--json", obj], txt))
+        assert info == ref, "file-info differs from the reference on disk"
+        want = [c["sha256"] for part in ref["parts"]
+                for c in part["data"] + part["parity"]]
+        got = step("cli_get_hashes", ["get-hashes", obj],
+                   txt).decode().split()
+        assert got == ["sha256-" + h for h in want], "get-hashes differs"
+        dirs = [os.path.join(top, f"d{i}") for i in range(D + P)]
+        on_disk = {n for d in dirs for n in os.listdir(d)}
+        orphans = sorted(on_disk - {"sha256-" + h for h in want})
+        unused = step("cli_find_unused_hashes",
+                      ["find-unused-hashes", "--grace-seconds", "0",
+                       f"{conf}#.", "--"] + dirs, txt).decode().split()
+        assert sorted(unused) == orphans, (unused, orphans)
+        log(f"  verify named the {len(lost)} deleted chunks; resilver "
+            f"restored them; both cats equal the source; ls, file-info and "
+            f"get-hashes agree with the reference on disk; "
+            f"find-unused-hashes listed {len(orphans)} orphan(s)")
+        os.remove(src)
+
+        # ---- config 5 through the JAX package's backend name: it
+        # resolves to the registered cuda:dp2,tp4 on 8 logical devices of
+        # the card, what CHUNKY_BITS_TORCH_VIRTUAL_DEVICES=8 gives ----
+        assert get_backend("jax:dp2,tp4") is tp_be
+        assert len(tp_be.devices) == 8, tp_be.devices
+        top = os.path.join(root, "c5")
+        os.makedirs(top)
+        conf = cluster_yaml(top, CONFIG5, "jax:dp2,tp4")
+        total = DISK5_PARTS * CONFIG5.d * CONFIG5.chunk + TAIL
+        src = os.path.join(root, "src5.bin")
+        write_source(src, blob, total)
+        obj = f"{conf}#obj"
+        log(f"cluster_cli config 5: {total / 2**30:.3f} GiB over "
+            f"{CONFIG5.d + CONFIG5.p} path destinations, backend: "
+            f"\"jax:dp2,tp4\" -> {tp_be.name} on 8 logical devices")
+        tp = ("gf_acc", "gf_acc_pack")
+        step("cli5_cp", ["cp", src, obj], txt, total, tp)
+        step("cli5_cat", ["cat", obj], out, total, tp)
+        assert same_file(src, out), "config-5 cat differs"
+        lost = damage_chunks(os.path.join(top, "meta", "obj"),
+                             lambda _i: CONFIG5.lost)
+        report = step("cli5_resilver", ["resilver", obj], txt,
+                      len(lost) * CONFIG5.chunk, tp).decode()
+        check_resilver(report, DISK5_PARTS + 1)
+        report = step("cli5_verify_resilvered", ["verify", obj],
+                      txt).decode()
+        assert report.startswith("file\tValid"), report[:200]
+        step("cli5_cat_resilvered", ["cat", obj], out, total, tp)
+        assert same_file(src, out), "config-5 cat after resilver"
+        log(f"  {len(lost)} chunks lost and resilvered (the report shows "
+            f"each written, verify after reads Valid); both cats equal "
+            f"the source")
+        os.remove(src)
+
+        # ---- pm-msr through a profile ----
+        geo = PM_MSR
+        top = os.path.join(root, "pm")
+        os.makedirs(top)
+        conf = cluster_yaml(top, geo, "cuda", code="pm-msr")
+        total = PM_MSR_PARTS * geo.d * geo.chunk + TAIL
+        src = os.path.join(root, "srcpm.bin")
+        write_source(src, blob, total)
+        obj = f"{conf}#obj"
+        log(f"cluster_cli pm-msr: {total / 2**30:.3f} GiB, d={geo.d} "
+            f"p={geo.p}, {geo.chunk >> 20} MiB chunks, backend: cuda")
+        step("cli_pm_cp", ["cp", src, obj], txt, total, k1)
+        step("cli_pm_cat", ["cat", obj], out, total, k1)
+        assert same_file(src, out), "pm-msr cat differs"
+        with open(os.path.join(top, "meta", "obj")) as f:
+            assert all(part["code"] == "pm-msr"
+                       for part in yaml.safe_load(f)["parts"])
+        n = geo.d + geo.p
+        lost = damage_chunks(os.path.join(top, "meta", "obj"),
+                             lambda i: (i % n,))
+        report = step("cli_pm_resilver", ["resilver", obj], txt,
+                      len(lost) * geo.chunk, k1).decode()
+        check_resilver(report, PM_MSR_PARTS + 1)
+        report = step("cli_pm_verify_resilvered", ["verify", obj],
+                      txt).decode()
+        assert report.startswith("file\tValid"), report[:200]
+        step("cli_pm_cat_resilvered", ["cat", obj], out, total, k1)
+        assert same_file(src, out), "pm-msr cat after resilver differs"
+        log(f"  one chunk of each of {len(lost)} parts lost and "
+            f"resilvered (the report shows each written, verify after "
+            f"reads Valid); both cats equal the source")
+        os.remove(src)
+
+        # ---- the real entry point, on the default backend ----
+        top = os.path.join(root, "small")
+        os.makedirs(top)
+        conf = cluster_yaml(top, CONFIG2, None)
+        src = os.path.join(root, "small.bin")
+        write_source(src, blob, SMALL_OBJECT)
+        # the default backend: CHUNKY_BITS_TORCH_BACKEND unset; ``-m``
+        # finds the package from the checkout's root
+        env = environ_without(BACKEND_ENV)
+        here = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "chunky_bits_tpu_torch", "--config",
+               os.path.join(root, "config.yaml")]
+        t0 = time.perf_counter()
+        subprocess.run(cmd + ["cp", src, f"{conf}#small"], env=env,
+                       cwd=here, check=True, timeout=300)
+        got = subprocess.run(cmd + ["cat", f"{conf}#small"], env=env,
+                             cwd=here, check=True, timeout=300,
+                             capture_output=True).stdout
+        with open(src, "rb") as f:
+            assert got == f.read(), "python -m cat differs from the source"
+        log(f"cluster_cli entry point: python -m chunky_bits_tpu_torch cp "
+            f"and cat of {SMALL_OBJECT} bytes on the default backend in "
+            f"{time.perf_counter() - t0:.1f} s, byte-identical")
+    rec.close()
+    return expected
+
+
 def phase_timings(torch, dev, coder, data: np.ndarray,
                   parity: np.ndarray) -> list[dict]:
     """Each kernel at the main path's launch shape beside its plain
@@ -1766,12 +2112,17 @@ def main() -> int:
         DISK5_PARTS, tp_be.name))
     pipeline.close()
     log(f"cuda:dp2,tp4 dispatch window: {tp_be.pipeline.stats()}")
+    stamp("config-5 ingests and round trip")
+
+    # the cluster_cli group: the port's CLI over cluster YAMLs
+    expected.update(phase_cluster_cli(blob, path, counts, be, tp_be,
+                                      tp_rec))
+    stamp("cluster_cli")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")
     assert counts == expected, (counts, expected)
 
-    stamp("config-5 ingests and round trip")
     kernels = phase_timings(torch, dev, coder, data, parity)
     del data, parity, digests
     kernels.extend(phase_acc_timings(torch, dev))

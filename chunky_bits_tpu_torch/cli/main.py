@@ -1,0 +1,494 @@
+"""``chunky-bits`` CLI: coreutils-like commands for files and clusters (the
+port of ``chunky_bits_tpu/cli/main.py``).
+
+Mirrors src/bin/chunky-bits/main.rs: global overrides ``--config``,
+``--chunk-size``, ``--data-chunks``, ``--parity-chunks`` (:76-93), the
+port's ``--backend``, and the subcommands (:96-177): cat, config-info,
+cluster-info, cp, decode-shards, encode-shards, file-info,
+find-unused-hashes, get-hashes, ls, migrate, resilver and verify.  The
+JAX package's serving and storage-ops commands parse but raise "not yet
+ported": ``http-gateway`` and ``stats`` (ROADMAP Queue A item 5),
+``scrub`` and ``meta-compact`` (item 6).
+
+Cluster locations are formatted ``cluster-name#path/to/file``; a location
+for the cluster definition may be used instead of a name
+(``./cluster.yaml#path``); ``@#location`` addresses a file reference;
+``-`` is stdio.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import errno
+import json
+import os
+import sys
+
+
+from chunky_bits_tpu_torch.cli.cluster_location import ClusterLocation
+from chunky_bits_tpu_torch.cli.config import Config
+from chunky_bits_tpu_torch.errors import ChunkyBitsError, LocationError
+from chunky_bits_tpu_torch.file import AnyHash, Location
+from chunky_bits_tpu_torch.ops import get_coder
+from chunky_bits_tpu_torch.utils import aio
+from chunky_bits_tpu_torch.utils.yamlio import yaml_dump
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="chunky-bits",
+        description="An interface for Chunky Bits files and clusters "
+                    "(PyTorch/CUDA implementation).",
+    )
+    parser.add_argument("--config", help="Location for the config file")
+    parser.add_argument("--chunk-size", type=int,
+                        help="Default chunk size (log2) for non-cluster "
+                             "destinations")
+    parser.add_argument("--data-chunks", type=int,
+                        help="Default data chunks for non-cluster "
+                             "destinations")
+    parser.add_argument("--parity-chunks", type=int,
+                        help="Default parity chunks for non-cluster "
+                             "destinations")
+    parser.add_argument("--backend",
+                        help="Erasure backend: cuda (the default), "
+                             "cuda:<spec> (e.g. cuda:dp2,tp4), mesh, "
+                             "torch or numpy; the JAX package's jax, "
+                             "jax:<spec> and auto resolve to the card")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("cat", help="Concatenate files together")
+    p.add_argument("targets", nargs="+")
+
+    p = sub.add_parser("config-info",
+                       help="Show the parsed configuration definition")
+    p.add_argument("--json", action="store_true")
+
+    p = sub.add_parser("cluster-info",
+                       help="Show the parsed cluster definition")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("cluster")
+
+    p = sub.add_parser("cp", help="Copy file from source to destination")
+    p.add_argument("source")
+    p.add_argument("destination")
+
+    p = sub.add_parser("decode-shards",
+                       help="Reassemble data from d-of-n shard files")
+    p.add_argument("targets", nargs="+")
+
+    p = sub.add_parser("encode-shards",
+                       help="Split a source into d+p shard files")
+    p.add_argument("source")
+    p.add_argument("targets", nargs="+")
+
+    p = sub.add_parser("file-info", help="Show a file reference")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("source")
+
+    p = sub.add_parser("find-unused-hashes",
+                       help="Find all hashes that are not referenced")
+    p.add_argument("--batch-size", type=int, default=100000)
+    p.add_argument("-r", "--remove", action="store_true")
+    p.add_argument("--grace-seconds", type=float, default=60.0,
+                   help="skip chunk files younger than this (an in-flight"
+                        " write stages chunks before publishing the"
+                        " metadata that references them; 0 disables)")
+    p.add_argument("source", nargs="+",
+                   help="cluster/file-ref locations that define liveness")
+    p.add_argument("hashes", nargs="*", default=[],
+                   help="local hash directories to scan (after --)")
+
+    p = sub.add_parser("get-hashes",
+                       help="Get all the known hashes for a location")
+    p.add_argument("-d", "--dedup", action="store_true",
+                   dest="deduplicate")
+    p.add_argument("-s", "--sort", action="store_true")
+    p.add_argument("target")
+
+    _not_ported(sub, "http-gateway",
+                 "Provide a HTTP Gateway for a cluster")
+
+    p = sub.add_parser("ls", help="List the files in a cluster directory")
+    p.add_argument("-r", "--recursive", action="store_true")
+    p.add_argument("target")
+
+    _not_ported(sub, "meta-compact",
+                 "Compact a cluster's meta-log metadata store")
+
+    p = sub.add_parser(
+        "migrate",
+        help="Reference the file in its existing location and add parity")
+    p.add_argument("source")
+    p.add_argument("destination")
+
+    p = sub.add_parser("resilver", help="Resilver a cluster file")
+    p.add_argument("target")
+
+    _not_ported(sub, "scrub",
+                 "Continuously verify and repair cluster chunks")
+    _not_ported(sub, "stats",
+                "Render a running gateway's statistics")
+
+    p = sub.add_parser("verify", help="Verify a cluster file")
+    p.add_argument("target")
+
+    return parser
+
+
+#: subcommands of the JAX package whose modules the port has not yet, and
+#: the ROADMAP Queue A item that brings each
+NOT_PORTED = {"http-gateway": 5, "stats": 5, "scrub": 6, "meta-compact": 6}
+
+
+def _not_ported(sub, name: str, help_: str) -> None:
+    """A subcommand that parses any arguments and raises when run."""
+    p = sub.add_parser(name, help=f"{help_} (not yet ported)")
+    p.add_argument("rest", nargs=argparse.REMAINDER)
+
+
+def _dump(obj, as_json: bool) -> None:
+    if as_json:
+        json.dump(obj, sys.stdout, indent=2)
+        print()
+    else:
+        yaml_dump(obj, sys.stdout, sort_keys=False)
+
+
+def _shard_geometry(args, targets: list) -> tuple[int, int]:
+    """Infer (d, p) for the standalone shard codec (main.rs:521-559)."""
+    if args.parity_chunks is None:
+        raise ChunkyBitsError(
+            "Parity Chunk Count must be known to decode shards")
+    p = args.parity_chunks
+    if args.data_chunks is not None:
+        d = args.data_chunks
+        if len(targets) != d + p:
+            raise ChunkyBitsError(
+                f"Invalid targets: Expected {d + p} targets but got "
+                f"{len(targets)}")
+        return d, p
+    if len(targets) <= p:
+        raise ChunkyBitsError(
+            f"Invalid targets: Expected more than {p} targets but got "
+            f"{len(targets)}")
+    return len(targets) - p, p
+
+
+async def run(args) -> int:
+    if args.backend:
+        # the flag reaches ops/backend's default resolution through the
+        # environment, as in the JAX package
+        from chunky_bits_tpu_torch.cluster.tunables import \
+            set_default_backend
+
+        set_default_backend(args.backend)
+    config = await Config.load_or_default(
+        args.config, chunk_size=args.chunk_size,
+        data_chunks=args.data_chunks, parity_chunks=args.parity_chunks)
+    return await _run_command(args, config)
+
+
+async def _run_command(args, config) -> int:
+    cmd = args.command
+    if cmd in NOT_PORTED:
+        raise ChunkyBitsError(
+            f"{cmd} is not yet ported (ROADMAP Queue A item "
+            f"{NOT_PORTED[cmd]})")
+    if cmd == "cat":
+        destination = ClusterLocation.parse("-")
+        for target in args.targets:
+            await _copy(config, ClusterLocation.parse(target), destination)
+    elif cmd == "config-info":
+        _dump(config.to_obj(), args.json)
+    elif cmd == "cluster-info":
+        cluster = await config.get_cluster(args.cluster)
+        _dump(cluster.to_obj(), args.json)
+    elif cmd == "cp":
+        await _copy(config, ClusterLocation.parse(args.source),
+                    ClusterLocation.parse(args.destination))
+    elif cmd == "decode-shards":
+        targets = [ClusterLocation.parse(t) for t in args.targets]
+        d, p = _shard_geometry(args, targets)
+        coder = get_coder(d, p)
+        shards = []
+        for target in targets:
+            try:
+                reader = await target.get_reader(config)
+                shards.append(await _read_all(reader))
+            except (ChunkyBitsError, OSError) as err:
+                print(f"Error {target}: {err}", file=sys.stderr)
+                shards.append(None)
+        import numpy as np
+
+        arrays = [np.frombuffer(s, dtype=np.uint8) if s is not None
+                  else None for s in shards]
+        arrays = coder.reconstruct_data(arrays)
+        out = sys.stdout.buffer
+        for arr in arrays[:d]:
+            if arr is not None:
+                out.write(bytes(arr))
+        out.flush()
+    elif cmd == "encode-shards":
+        targets = [ClusterLocation.parse(t) for t in args.targets]
+        d, p = _shard_geometry(args, targets)
+        coder = get_coder(d, p)
+        source = ClusterLocation.parse(args.source)
+        data_buf = await _read_all(await source.get_reader(config))
+        from chunky_bits_tpu_torch.file.file_part import split_into_shards
+
+        shards, _len = split_into_shards(data_buf, len(data_buf), d)
+        import numpy as np
+
+        parity = coder.encode([np.frombuffer(s, dtype=np.uint8)
+                               for s in shards]) if p else []
+        payloads = [bytes(s) for s in shards] + [bytes(x) for x in parity]
+        for target, payload in zip(targets, payloads):
+            try:
+                await target.write_from_reader(
+                    config, aio.BytesReader(payload))
+            except (ChunkyBitsError, OSError) as err:
+                print(f"Error {target}: {err}", file=sys.stderr)
+    elif cmd == "file-info":
+        source = ClusterLocation.parse(args.source)
+        file_ref = await source.get_file_reference(
+            config,
+            await config.get_default_data_chunks(),
+            await config.get_default_parity_chunks(),
+            await config.get_default_chunk_size())
+        _dump(file_ref.to_obj(), args.json)
+    elif cmd == "find-unused-hashes":
+        await find_unused_hashes(config, args)
+    elif cmd == "get-hashes":
+        target = ClusterLocation.parse(args.target)
+        hashes = []
+        async for h in target.get_hashes_rec(config):
+            if args.sort or args.deduplicate:
+                hashes.append(h)
+            else:
+                print(h)
+        if args.sort:
+            for h in sorted(set(hashes), key=str):
+                print(h)
+        elif args.deduplicate:
+            for h in dict.fromkeys(hashes):
+                print(h)
+    elif cmd == "ls":
+        target = ClusterLocation.parse(args.target)
+        if args.recursive:
+            async for entry in target.list_files_recursive(config):
+                print(entry)
+        else:
+            for entry in await target.list_files(config):
+                print(entry)
+    elif cmd == "migrate":
+        source = ClusterLocation.parse(args.source)
+        destination = ClusterLocation.parse(args.destination)
+        await source.migrate(config, destination)
+    elif cmd == "resilver":
+        target = ClusterLocation.parse(args.target)
+        report = await target.resilver(config)
+        print(report.display_full_report())
+    elif cmd == "verify":
+        target = ClusterLocation.parse(args.target)
+        report = await target.verify(config)
+        print(report.display_full_report())
+    return 0
+
+
+async def _copy(config, source: ClusterLocation,
+                destination: ClusterLocation) -> None:
+    """Stream ``source`` into ``destination``; the reader is closed after,
+    so a local source's file is released at once."""
+    reader = await source.get_reader(config)
+    try:
+        await destination.write_from_reader(config, reader)
+    finally:
+        await aio.close_reader(reader)
+
+
+async def _read_all(reader: aio.AsyncByteReader) -> bytes:
+    """Drain and close ``reader``."""
+    chunks = []
+    try:
+        while True:
+            data = await reader.read(1 << 20)
+            if not data:
+                break
+            chunks.append(data)
+    finally:
+        await aio.close_reader(reader)
+    return b"".join(chunks)
+
+
+async def find_unused_hashes(config, args) -> None:
+    """GC: list hash files under local dirs, subtract hashes referenced by
+    the sources, print/remove the orphans; batched (main.rs:329-435).
+
+    Safe against concurrent ingest where the reference is not: a ``cp``
+    stages chunk files BEFORE publishing the metadata that references
+    them, so a racing GC would list the new chunk, find no reference,
+    and delete it out from under the imminent publish.  Chunk files
+    younger than ``--grace-seconds`` (measured against GC start) are
+    therefore never candidates; the reference runs the same scan with no
+    such guard (main.rs:329-435).
+
+    Hash directories are local paths; the JAX package's packed ``slab:``
+    destinations come with ROADMAP Queue A item 6 (``Location.parse``
+    refuses them until then)."""
+    import time as _time
+
+    sources = [ClusterLocation.parse(s) for s in args.source]
+    for s in sources:
+        if s.kind not in ("cluster", "file_ref"):
+            raise ChunkyBitsError(f"Unsupported source location: {s}")
+    hash_dirs = [ClusterLocation.parse(h) for h in args.hashes]
+    for h in hash_dirs:
+        if h.kind != "other" or not h.location.is_local():
+            raise ChunkyBitsError(f"Unsupported hashes location: {h}")
+    cutoff = _time.time() - args.grace_seconds
+
+    async def _age_of(path: str) -> str:
+        """``"old"`` (a GC candidate), ``"fresh"`` (inside the grace
+        window — an in-flight write may be about to reference it), or
+        ``"gone"`` (vanished mid-scan).  stat runs off-loop like the
+        listing's own metadata calls."""
+        if args.grace_seconds <= 0:
+            return "old"
+        try:
+            st = await asyncio.to_thread(os.stat, path)
+        except OSError:
+            return "gone"
+        return "old" if st.st_mtime < cutoff else "fresh"
+
+    # Atomic local publication stages temp files and renames in
+    # (location.is_publish_temp defines the format next to its
+    # producer); a writer killed hard leaves the temp behind with no
+    # other reclamation path.  A temp is invisible until renamed, so
+    # any one older than the grace window is dead — remove it here
+    # (the scan ignores other unknown names, as the reference does,
+    # main.rs:372-377).
+    from chunky_bits_tpu_torch.file.location import is_publish_temp
+
+    async def _reap_stale_temp(path: str) -> bool:
+        if not is_publish_temp(os.path.basename(path)):
+            return False
+        if args.grace_seconds > 0 and await _age_of(path) != "old":
+            return True  # a live writer's temp: skip, don't report
+        print(f"Stale publish temp: {path}", file=sys.stderr)
+        if args.remove:
+            try:
+                await Location.local(path).delete()
+            except LocationError as err:
+                # only the missing-file race is benign (renamed or
+                # reaped concurrently); EACCES/EROFS etc. must surface
+                # like the ordinary chunk path's failures do
+                cause = err.__cause__
+                if not (isinstance(cause, OSError)
+                        and cause.errno == errno.ENOENT):
+                    raise
+        return True
+
+    async def hash_files():
+        for hash_dir in hash_dirs:
+            async for entry in hash_dir.list_files_recursive(config):
+                if not entry.is_file():
+                    continue
+                if await _reap_stale_temp(entry.path):
+                    continue
+                if await _age_of(entry.path) == "old":
+                    yield entry.path
+
+    files_iter = hash_files()
+    done = False
+    while not done:
+        existing: dict[str, list[str]] = {}
+        while len(existing) < args.batch_size:
+            try:
+                path = await files_iter.__anext__()
+            except StopAsyncIteration:
+                done = True
+                break
+            name = os.path.basename(path)
+            try:
+                hash_ = AnyHash.parse(name)
+            except ChunkyBitsError:
+                print(f"Unknown hash: {name}", file=sys.stderr)
+                continue
+            existing.setdefault(str(hash_), []).append(path)
+        if not existing:
+            break
+        for source in sources:
+            async for hash_ in source.get_hashes_rec(config):
+                existing.pop(str(hash_), None)
+        for hash_str, paths in existing.items():
+            if not args.remove:
+                print(hash_str)
+                continue
+            removed = False
+            for path in paths:
+                # Re-check age at the last moment: a concurrent ingest
+                # can re-write a listed orphan (same content hash =>
+                # same path) between the batch scan and this delete; a
+                # fresh mtime means someone wants it again.
+                age = await _age_of(path)
+                if age == "gone":
+                    continue  # someone else removed it — goal achieved
+                if age == "fresh":
+                    print(f"Skipping recently re-written {path}",
+                          file=sys.stderr)
+                    continue
+                print(f"Removing {path}", file=sys.stderr)
+                await Location.local(path).delete()
+                removed = True
+            if removed:
+                # in remove mode the stdout line means "collected", so
+                # a hash whose every path was spared is not printed
+                print(hash_str)
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    # `find-unused-hashes SOURCES -- HASH_DIRS`: split at the separator
+    # ourselves (argparse cannot split two variadic positionals).
+    tail: list[str] = []
+    if "--" in argv:
+        idx = argv.index("--")
+        argv, tail = argv[:idx], argv[idx + 1:]
+    args = build_parser().parse_args(argv)
+    if tail:
+        if args.command != "find-unused-hashes":
+            print("unexpected arguments after --", file=sys.stderr)
+            return 2
+        args.hashes = tail
+    if args.command == "find-unused-hashes" and not args.hashes:
+        print("find-unused-hashes requires hash directories after --",
+              file=sys.stderr)
+        return 2
+    try:
+        return asyncio.run(run(args))
+    except ChunkyBitsError as err:
+        print(err, file=sys.stderr)
+        return 1
+    except KeyboardInterrupt:
+        return 130
+    except BrokenPipeError:
+        # Downstream closed (e.g. `cat ... | head`): die quietly like a
+        # coreutils tool.  Point stdout at devnull so the interpreter's
+        # exit-time flush doesn't raise a second time.  stdout may not be
+        # backed by a real fd (captured/replaced in embedding harnesses);
+        # still exit quietly then.
+        try:
+            devnull = os.open(os.devnull, os.O_WRONLY)
+            os.dup2(devnull, sys.stdout.fileno())
+        except (OSError, ValueError):
+            # fileno() raises ValueError/io.UnsupportedOperation on a
+            # replaced stdout; everything else here raises OSError
+            pass
+        return 141  # 128 + SIGPIPE
+
+
+if __name__ == "__main__":
+    sys.exit(main())

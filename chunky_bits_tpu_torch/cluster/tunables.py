@@ -1,18 +1,34 @@
-"""Environment accessors: the one home for ``CHUNKY_BITS_TORCH_*`` reads.
+"""Cluster-wide knobs and the one home for ``CHUNKY_BITS_TORCH_*`` reads
+(the port of ``chunky_bits_tpu/cluster/tunables.py``).
 
-Stand-alone copies of ``env_str``, ``env_flag``, ``host_threads`` and
-``dispatch_depth`` from ``chunky_bits_tpu/cluster/tunables.py``, plus
-``virtual_devices`` (the port's stand-in for the JAX package's forced host
-device count); ``env_seconds`` comes over with the first knob that needs
-it.  The port reads only its own prefix, so a process
-that configures the JAX package through ``CHUNKY_BITS_TPU_*`` leaves the port
-as it is.  Callers read a knob at the moment it takes effect, never at import
-time.
+``Tunables`` is a cluster YAML's ``tunables:`` mapping, as in the JAX
+package (src/cluster/tunables.rs:52-95 plus that package's extensions):
+``on_conflict``, ``https_only``, ``user_agent``, the erasure ``backend``
+and the host and read-path knobs.  YAML wins; an environment variable
+supplies each default.  ``backend`` keeps the string as written, so a
+YAML naming the JAX package's backends round-trips; the names resolve in
+``ops.backend.canonical_backend_name``.
+
+The knobs of modules that are not ported yet are refused, never dropped:
+a ``slo:`` or ``qos:`` mapping, ``cache_bytes``, ``trace_slow_ms`` or
+``slo_eval_s`` above 0 (ROADMAP Queue A item 5) and
+``scrub_bytes_per_sec`` above 0 (item 6) raise ``SerdeError``, as does
+``$CHUNKY_BITS_TORCH_CACHE_BYTES`` above 0.
+
+The environment accessors are stand-alone copies of the JAX package's,
+plus ``virtual_devices`` (the port's stand-in for the forced host device
+count).  The port reads only its own prefix, so a process that configures
+the JAX package through ``CHUNKY_BITS_TPU_*`` leaves the port as it is.
+Callers read a knob at the moment it takes effect, never at import time.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass, field
+from typing import Optional
+
+from chunky_bits_tpu_torch.errors import SerdeError
 
 #: prefix of every environment variable the port reads
 ENV_PREFIX = "CHUNKY_BITS_TORCH_"
@@ -43,6 +59,35 @@ DISPATCH_DEPTH_ENV = ENV_PREFIX + "DISPATCH_DEPTH"
 #: stream each) instead of one per CUDA device; the counterpart of the
 #: JAX package's forced host device count (``utils/virtualmesh.py``)
 VIRTUAL_DEVICES_ENV = ENV_PREFIX + "VIRTUAL_DEVICES"
+
+#: the JAX package's read-cache budget; the cache is not ported, so a
+#: value above 0 raises
+CACHE_BYTES_ENV = ENV_PREFIX + "CACHE_BYTES"
+
+#: hedged-read delay floor in milliseconds (cluster/health.py); 0/unset
+#: = hedging off.  YAML ``hedge_ms`` wins
+HEDGE_MS_ENV = ENV_PREFIX + "HEDGE_MS"
+
+#: per-location retries of transient HTTP errors on the read fall-through
+#: and the shard-write failover (default 1).  YAML ``read_retries`` wins
+READ_RETRIES_ENV = ENV_PREFIX + "READ_RETRIES"
+
+#: writer stagger: writer i waits this long for writer i-1's first
+#: placement decision (the reference pins 100 ms, writer.rs:246)
+STAGGER_SECONDS_ENV = ENV_PREFIX + "STAGGER_SECONDS"
+
+#: block-digest tree granularity in bytes (file/chunk.py BlockDigests);
+#: 0/unset = off.  YAML ``repair_block_bytes`` wins
+REPAIR_BLOCK_BYTES_ENV = ENV_PREFIX + "REPAIR_BLOCK_BYTES"
+
+#: default erasure code for write profiles that do not pin ``code:``:
+#: "rs" or "pm-msr".  A default, not a force: a profile whose geometry
+#: cannot run pm-msr stays rs (cluster/profile.py)
+CODE_ENV = ENV_PREFIX + "CODE"
+
+#: fleet-wide metadata-store kind override for ``type: path`` stores:
+#: ``meta-log`` (not yet ported: it raises, ROADMAP Queue A item 6)
+METADATA_KIND_ENV = ENV_PREFIX + "METADATA_KIND"
 
 _FALSY = ("", "0", "false", "no", "off")
 
@@ -97,3 +142,197 @@ def virtual_devices() -> int:
     except ValueError:
         return 0
     return max(v, 0)
+
+
+def set_default_backend(name: str) -> None:
+    """Make ``name`` the process's default erasure backend (the CLI's
+    ``--backend``): a write of ``$CHUNKY_BITS_TORCH_BACKEND``, which
+    ``ops.backend.canonical_backend_name`` reads at each resolution."""
+    os.environ[BACKEND_ENV] = name
+
+
+def environ_without(*names: str) -> dict:
+    """A copy of this process's environment without ``names``: the
+    environment of a child process that must see those knobs' defaults."""
+    return {k: v for k, v in os.environ.items() if k not in names}
+
+
+def env_seconds(name: str, *, default: float) -> float:
+    """Duration env knob in seconds; unset or empty reads as ``default``.
+    A malformed value raises ``ValueError``: a typo must fail loudly."""
+    raw = os.environ.get(name, "")
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"bad ${name}={raw!r} (want seconds)") from None
+
+
+def _lenient(name: str, parse, default, ok):
+    """``parse($name)`` where ``ok`` holds, else ``default``: a perf knob
+    can only tune, never crash, startup."""
+    try:
+        v = parse(os.environ.get(name, ""))
+    except ValueError:
+        return default
+    return v if ok(v) else default
+
+
+def erasure_code(*, default: str = "rs") -> str:
+    """Requested default erasure code from ``$CHUNKY_BITS_TORCH_CODE``;
+    an unknown value reads as ``default``.  Geometry compatibility is the
+    caller's check (cluster/profile.py)."""
+    from chunky_bits_tpu_torch.ops.backend import KNOWN_CODES
+
+    raw = os.environ.get(CODE_ENV, "").strip()
+    return raw if raw in KNOWN_CODES else default
+
+
+def metadata_kind(*, default: str = "") -> str:
+    """Requested fleet-wide metadata-store kind from
+    ``$CHUNKY_BITS_TORCH_METADATA_KIND``: only ``meta-log`` is honoured,
+    anything else reads as ``default`` ("" = no override)."""
+    raw = os.environ.get(METADATA_KIND_ENV, "").strip()
+    return raw if raw == "meta-log" else default
+
+
+def stagger_seconds(*, default: float = 0.1) -> float:
+    """Shard-writer stagger window (cluster/destination.py); the
+    reference pins 100 ms (src/cluster/writer.rs:246)."""
+    return _lenient(STAGGER_SECONDS_ENV, float, default, lambda v: v >= 0)
+
+
+def hedge_ms(*, default: float = 0.0) -> float:
+    """Env default of the ``hedge_ms`` tunable (0 = hedged reads off)."""
+    return _lenient(HEDGE_MS_ENV, float, default, lambda v: v > 0)
+
+
+def read_retries(*, default: int = 1) -> int:
+    """Env default of the ``read_retries`` tunable; negative reads as the
+    default."""
+    return _lenient(READ_RETRIES_ENV, int, default, lambda v: v >= 0)
+
+
+def repair_block_bytes(*, default: int = 0) -> int:
+    """Env default of the ``repair_block_bytes`` tunable (0 = no
+    block-digest trees)."""
+    return _lenient(REPAIR_BLOCK_BYTES_ENV, int, default, lambda v: v > 0)
+
+
+def cache_bytes(*, default: int = 0) -> int:
+    """``$CHUNKY_BITS_TORCH_CACHE_BYTES``; malformed or negative reads as
+    off.  ``Tunables`` refuses a value above 0."""
+    return _lenient(CACHE_BYTES_ENV, int, default, lambda v: v >= 0)
+
+
+#: the tunables parsed as numbers: (name, type, default factory); YAML
+#: values must be >= 0
+_NUMERIC = (
+    ("host_threads", int, host_threads),
+    ("hedge_ms", float, hedge_ms),
+    ("read_retries", int, read_retries),
+    ("repair_block_bytes", int, repair_block_bytes),
+)
+
+#: the JAX package's tunables whose modules the port has not yet, and the
+#: ROADMAP Queue A item that brings each: refused when set
+_NOT_PORTED = (("slo", "the SLO engine", 5), ("qos", "multi-tenant QoS", 5),
+               ("cache_bytes", "the chunk cache", 5),
+               ("trace_slow_ms", "request tracing", 5),
+               ("slo_eval_s", "the SLO engine", 5),
+               ("scrub_bytes_per_sec", "the scrub daemon", 6))
+
+
+@dataclass
+class Tunables:
+    """A cluster's ``tunables:`` mapping; see the module docstring."""
+
+    https_only: bool = False
+    on_conflict: str = "ignore"
+    user_agent: Optional[str] = None
+    #: erasure backend name as written (None = the port's default)
+    backend: Optional[str] = None
+    #: host pipeline workers for this cluster's ingest and verify compute;
+    #: 0 = the process-shared pipeline
+    host_threads: int = field(default_factory=host_threads)
+    #: hedged-read delay floor in ms (cluster/health.py); 0 = off
+    hedge_ms: float = field(default_factory=hedge_ms)
+    #: per-location transient-HTTP retry count
+    read_retries: int = field(default_factory=read_retries)
+    #: block-digest tree granularity (file/chunk.py); 0 = off
+    repair_block_bytes: int = field(default_factory=repair_block_bytes)
+
+    def is_device_backend(self) -> bool:
+        """True when the erasure plane runs on the card (``cuda``,
+        ``cuda:<spec>``, ``mesh``, the JAX package's ``jax`` names, and
+        the default unless ``$CHUNKY_BITS_TORCH_BACKEND`` names a host
+        backend): the regime where batching amortizes dispatches."""
+        from chunky_bits_tpu_torch.ops.backend import canonical_backend_name
+
+        name = canonical_backend_name(self.backend)
+        return name == "cuda" or name.startswith("cuda:") or name == "mesh"
+
+    def __post_init__(self) -> None:
+        from chunky_bits_tpu_torch.file.location import (IGNORE, OVERWRITE,
+                                                         LocationContext)
+
+        if self.on_conflict not in (IGNORE, OVERWRITE):
+            raise SerdeError(f"invalid on_conflict {self.on_conflict!r}")
+        if cache_bytes() > 0:
+            raise SerdeError(
+                f"${CACHE_BYTES_ENV}: the chunk cache is not yet ported "
+                f"(ROADMAP Queue A item 5)")
+        self._location_context = LocationContext(
+            on_conflict=self.on_conflict, read_retries=self.read_retries)
+
+    @classmethod
+    def from_obj(cls, obj: object) -> "Tunables":
+        if obj is None:
+            return cls()
+        if not isinstance(obj, dict):
+            raise SerdeError("tunables must be a mapping")
+        for key, what, item in _NOT_PORTED:
+            if obj.get(key):
+                raise SerdeError(
+                    f"tunables.{key}: {what} is not yet ported (ROADMAP "
+                    f"Queue A item {item})")
+        kwargs = {}
+        for name, kind, _default in _NUMERIC:
+            raw = obj.get(name)
+            if raw is None:
+                continue
+            try:
+                value = kind(raw)
+            except (TypeError, ValueError) as err:
+                raise SerdeError(f"invalid {name} {raw!r}") from err
+            if value < 0:
+                raise SerdeError(f"{name} must be >= 0, got {value}")
+            kwargs[name] = value
+        return cls(
+            https_only=bool(obj.get("https_only", False)),
+            on_conflict=obj.get("on_conflict", "ignore"),
+            user_agent=obj.get("user_agent"),
+            backend=obj.get("backend"),
+            **kwargs,
+        )
+
+    def to_obj(self) -> dict:
+        obj = {
+            "https_only": self.https_only,
+            "on_conflict": self.on_conflict,
+            "user_agent": self.user_agent,
+        }
+        if self.backend is not None:
+            obj["backend"] = self.backend
+        for name, _kind, _default in _NUMERIC:
+            value = getattr(self, name)
+            if name == "read_retries" and value != 1 or (
+                    name != "read_retries" and value > 0):
+                obj[name] = value
+        return obj
+
+    def location_context(self):
+        """The cluster's shared ``LocationContext`` (its health scoreboard
+        is set by ``Cluster``)."""
+        return self._location_context

@@ -29,6 +29,7 @@ from chunky_bits_tpu_torch.errors import (
     LocationError,
     NotEnoughChunks,
     ShardError,
+    is_transient_error,
 )
 from chunky_bits_tpu_torch.file.chunk import Chunk
 from chunky_bits_tpu_torch.file.hashing import AnyHash, Sha256Hash
@@ -252,10 +253,15 @@ class FilePart:
         part's reconstruction with other parts in flight into one device
         dispatch.
 
-        Not ported yet: the read cache, the location-health ordering and
-        hedged fetches, and retries of transient HTTP errors; they come
-        with ``file/chunk_cache.py``, ``cluster/health.py`` and the http
-        scheme."""
+        In a cluster (``cx.health`` set, cluster/health.py) every fetch
+        reports to the location-health scoreboard, and with the
+        ``hedge_ms`` tunable above 0 the read is tail-tolerant: a chunk's
+        locations are tried best-health first and raced after the
+        adaptive hedge delay (``fetch_hedged``), and a straggling chunk
+        is beaten by fetching one more and reconstructing
+        (``straggler_race``).  Transient HTTP errors get ``read_retries``
+        retries per location.  Not ported yet: the read cache
+        (``file/chunk_cache.py``)."""
         self.require_known_code()
         cx = cx or default_context()
         pipe = _pipe(pipeline)
@@ -263,6 +269,12 @@ class FilePart:
             # read-side verification runs on the host pipeline, so its
             # per-stage counters belong in the report
             cx.profiler.attach_pipeline(pipe)
+        # the cluster's scoreboard, or None outside a cluster; with
+        # hedging off the locations are walked in metadata order
+        health = cx.health
+        hedging = health is not None and health.hedge_enabled
+        if health is not None and cx.profiler is not None:
+            cx.profiler.attach_health(health)
         d, p = len(self.data), len(self.parity)
         # slot payloads are bytes, zero-copy memoryviews or rebuilt array
         # views (the consumers take buffers)
@@ -301,24 +313,130 @@ class FilePart:
                 nbytes=_buf_len(data))
             return (ok, data)
 
-        async def fetch_chunk(chunk: Chunk) -> Optional[object]:
-            """First verified buffer across the chunk's locations, or None
-            when every location is unreadable or corrupt; which location
-            failed and why goes to the profiler's failure trail."""
-            failures: list[tuple[Location, str]] = []
-            t0 = _clock.monotonic()
-            data = None
+        async def read_one(chunk: Chunk, location: Location
+                           ) -> tuple[bool, object]:
+            """``read_verified`` plus up to ``cx.read_retries`` jittered
+            retries against the same location for transient HTTP errors
+            (the reference never retries, src/file/file_part.rs:83-101)."""
+            attempt = 0
+            while True:
+                try:
+                    return await read_verified(chunk, location)
+                except LocationError as err:
+                    if attempt >= cx.read_retries \
+                            or not is_transient_error(err):
+                        raise
+                    attempt += 1
+                    await _clock.sleep(
+                        random.uniform(0.025, 0.075) * attempt)
+
+        def _corrupt(failures: list, location: Location,
+                     chunk: Chunk) -> None:
+            failures.append((location, f"hash mismatch (corrupt chunk "
+                                       f"{chunk.hash})"))
+            if health is not None:
+                # the I/O hook recorded a good transfer; corrupt content
+                # is still a demerit for the node that served it
+                health.record(location, False)
+
+        async def fetch_serial(chunk: Chunk, failures: list
+                               ) -> Optional[object]:
             for location in chunk.locations:
                 try:
-                    ok, buf = await read_verified(chunk, location)
+                    ok, data = await read_one(chunk, location)
                 except LocationError as err:
                     failures.append((location, str(err)))
                     continue
                 if ok:
-                    data = buf
-                    break
-                failures.append((location, f"hash mismatch (corrupt chunk "
-                                           f"{chunk.hash})"))
+                    return data
+                _corrupt(failures, location, chunk)
+            return None
+
+        async def fetch_hedged(chunk: Chunk, failures: list
+                               ) -> Optional[object]:
+            """Tail-tolerant fetch ("The Tail at Scale"): fire the
+            best-health location, and each time the adaptive hedge delay
+            expires with the race undecided, and the budget allows, race
+            the next-best one.  The first verified buffer wins; losers
+            are cancelled and awaited.  A failed racer falls through to
+            the next location at once, costing no hedge token."""
+            locs = health.order(chunk.locations)
+            pending: dict[asyncio.Task,
+                          tuple[Location, bool, float]] = {}
+            next_i = 0
+
+            def spawn(is_hedge: bool) -> None:
+                nonlocal next_i
+                location = locs[next_i]
+                next_i += 1
+                task = asyncio.ensure_future(read_one(chunk, location))
+                pending[task] = (location, is_hedge, _clock.monotonic())
+
+            spawn(is_hedge=False)
+            try:
+                hedge_more = True
+                while pending:
+                    timeout = (health.hedge_delay()
+                               if hedge_more and next_i < len(locs)
+                               and health.hedge_allowed()
+                               else None)
+                    # bounded by the hedge delay, or by the racers' own
+                    # location timeouts (the serial walk's bound)
+                    done, _ = await asyncio.wait(
+                        set(pending), timeout=timeout,
+                        return_when=asyncio.FIRST_COMPLETED)
+                    if not done:
+                        if health.try_fire_hedge():
+                            spawn(is_hedge=True)
+                        else:
+                            # budget dry: wait out the attempts in flight
+                            hedge_more = False
+                        continue
+                    for task in done:
+                        location, is_hedge, _t0 = pending.pop(task)
+                        try:
+                            ok, data = task.result()
+                        except LocationError as err:
+                            failures.append((location, str(err)))
+                            continue
+                        if ok:
+                            if is_hedge:
+                                health.hedge_won()
+                            return data
+                        _corrupt(failures, location, chunk)
+                    if not pending and next_i < len(locs):
+                        # every racer failed: a plain fall-through
+                        spawn(is_hedge=False)
+                return None
+            finally:
+                if pending:
+                    # only hedges count as cancelled hedges: a slow
+                    # primary beaten by its hedge is a hedge win
+                    health.hedge_cancelled(
+                        sum(1 for _l, is_h, _t in pending.values()
+                            if is_h))
+                    now = _clock.monotonic()
+                    for task, (location, _h, t0) in pending.items():
+                        task.cancel()
+                        # a cancelled loser ran at least this long: a
+                        # lower-bound sample, so the scoreboard learns
+                        # the straggler and demotes it
+                        health.record_latency_floor(location, now - t0)
+                    await asyncio.gather(*pending, return_exceptions=True)
+
+        async def fetch_chunk(chunk: Chunk) -> Optional[object]:
+            """First verified buffer across the chunk's locations
+            (health-ranked and hedged when armed), or None when every
+            location is unreadable or corrupt; which location failed and
+            why goes to the profiler's failure trail."""
+            failures: list[tuple[Location, str]] = []
+            if health is not None:
+                health.note_primary()  # hedge-budget accrual
+            t0 = _clock.monotonic()
+            if hedging and len(chunk.locations) > 1:
+                data = await fetch_hedged(chunk, failures)
+            else:
+                data = await fetch_serial(chunk, failures)
             obs_tracing.record_span(
                 "chunk_fetch", "network", t0, _clock.monotonic() - t0,
                 "ok" if data is not None else "miss")
@@ -337,9 +455,60 @@ class FilePart:
                 if data is not None:
                     return (index, data)
 
-        for item in await asyncio.gather(*[worker() for _ in range(d)]):
-            if item is not None:
-                slots[item[0]] = item[1]
+        async def straggler_race() -> None:
+            """The d-of-d+p degraded-read race: run the d chunk workers,
+            and whenever twice the hedge delay passes with workers still
+            out (budget allowing), draw one more chunk from the pool, so
+            a straggling data chunk can be beaten by fetch+reconstruct.
+            Once d slots are filled the stragglers are cancelled and
+            awaited; the reconstruction below fills the gaps."""
+            tasks = {asyncio.ensure_future(worker()) for _ in range(d)}
+            extras: set = set()  # hedge-spawned workers, for counters
+            try:
+                hedge_more = True
+                while tasks:
+                    # 2x the location delay: the per-chunk race gets the
+                    # first shot at a straggler
+                    timeout = (2.0 * health.hedge_delay()
+                               if hedge_more and pool
+                               and health.hedge_allowed() else None)
+                    # bounded by the hedge delay, or by the workers' own
+                    # location timeouts once the pool or budget is dry
+                    done, _ = await asyncio.wait(
+                        tasks, timeout=timeout,
+                        return_when=asyncio.FIRST_COMPLETED)
+                    if not done:
+                        if pool and health.try_fire_hedge():
+                            extra = asyncio.ensure_future(worker())
+                            tasks.add(extra)
+                            extras.add(extra)
+                        else:
+                            hedge_more = False
+                        continue
+                    tasks -= done
+                    for task in done:
+                        item = task.result()
+                        if item is not None:
+                            slots[item[0]] = item[1]
+                    if tasks and sum(
+                            1 for s in slots if s is not None) >= d:
+                        # any d of d+p: reconstruct beats waiting
+                        break
+            finally:
+                # only hedge-spawned extras count as cancelled hedges
+                health.hedge_cancelled(len(tasks & extras))
+                for task in tasks:
+                    task.cancel()
+                if tasks:
+                    await asyncio.gather(*tasks, return_exceptions=True)
+
+        if hedging:
+            await straggler_race()
+        else:
+            for item in await asyncio.gather(*[worker()
+                                               for _ in range(d)]):
+                if item is not None:
+                    slots[item[0]] = item[1]
         if not all(slots[i] is not None for i in range(d)):
             present = sum(1 for s in slots if s is not None)
             if present < d:

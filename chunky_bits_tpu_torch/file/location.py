@@ -5,9 +5,11 @@ As the reference's ``Location``, an address is a plain string with an
 optional ``(start,len)`` range prefix.  The port serves the ``path``
 scheme: a local filesystem path (or ``file://`` URL), with the verbs
 read (ranges, zero-extension), a streaming reader, a zero-copy page-cache
-view, write (conflict policy, atomic publication), subfile write
-(content-addressed children), delete, exists and len.  Filesystem calls
-hop to threads.
+view, write and streaming write (conflict policy, atomic publication),
+subfile write (content-addressed children), delete, exists and len.
+Filesystem calls hop to threads.  Every read and write also reports to
+the context's location-health scoreboard when a cluster set one
+(cluster/health.py).
 
 Not yet ported, and refused by ``Location.parse`` with a
 ``LocationParseError`` that says so: ``http(s)://`` (needs aiohttp),
@@ -40,9 +42,10 @@ from chunky_bits_tpu_torch.utils import fsio as _fsio
 OVERWRITE = "overwrite"
 IGNORE = "ignore"
 
-#: schemes of the JAX package that the port does not serve yet
-_NOT_PORTED = (("http://", "http"), ("https://", "http"), ("slab:", "slab"),
-               ("sim:", "sim"))
+#: schemes of the JAX package that the port does not serve yet, with the
+#: ROADMAP Queue A item that brings each
+_NOT_PORTED = (("http://", "http", 5), ("https://", "http", 5),
+               ("slab:", "slab", 6), ("sim:", "sim", 8))
 
 
 @dataclass(frozen=True)
@@ -88,21 +91,35 @@ class Range:
 
 
 class LocationContext:
-    """Per-operation context: conflict policy and an optional profiler
-    (src/file/location.rs:447-510)."""
+    """Per-operation context: conflict policy, an optional profiler and an
+    optional location-health scoreboard (src/file/location.rs:447-510).
+
+    ``health`` (a ``cluster.health.HealthScoreboard``, duck-typed to keep
+    ``file/`` free of the cluster package) receives a completion record
+    for every read, write and served page-cache view: the feed for
+    latency-ranked ordering, the per-location breaker and the hedged-read
+    delay.  ``read_retries`` bounds the per-location retries of transient
+    HTTP errors in the read fall-through (file/file_part.py) and the
+    shard-write failover (cluster/destination.py)."""
 
     def __init__(self, on_conflict: str = OVERWRITE,
-                 profiler: Optional[Profiler] = None):
+                 profiler: Optional[Profiler] = None,
+                 read_retries: int = 1):
         if on_conflict not in (OVERWRITE, IGNORE):
             raise ValueError(f"invalid on_conflict {on_conflict!r}")
         self.on_conflict = on_conflict
         self.profiler = profiler
+        self.read_retries = max(int(read_retries), 0)
+        self.health = None  # set by Cluster.__init__ (one per cluster)
 
     def but_with(self, *, on_conflict: Optional[str] = None,
                  profiler: Optional[Profiler] = None) -> "LocationContext":
-        return LocationContext(
+        cx = LocationContext(
             on_conflict=on_conflict or self.on_conflict,
-            profiler=profiler if profiler is not None else self.profiler)
+            profiler=profiler if profiler is not None else self.profiler,
+            read_retries=self.read_retries)
+        cx.health = self.health  # one scoreboard per cluster
+        return cx
 
 
 _DEFAULT_CONTEXT = LocationContext()
@@ -194,6 +211,11 @@ async def _atomic_publish(target: str, data) -> None:
         target, lambda path: asyncio.to_thread(_write, path))
 
 
+async def _atomic_publish_stream(reader, target: str) -> int:
+    return await _publish_atomically(
+        target, lambda path: aio.copy_reader_to_file(reader, path))
+
+
 class _ProfiledReader:
     """Counts streamed bytes and logs exactly one profiler entry when the
     stream ends: EOF, error, or early close."""
@@ -243,10 +265,11 @@ class Location:
     @staticmethod
     def parse(s: str) -> "Location":
         rng, rest = Range.from_str_prefix(s)
-        for prefix, scheme in _NOT_PORTED:
+        for prefix, scheme, item in _NOT_PORTED:
             if rest.startswith(prefix):
                 raise LocationParseError(
-                    f"{scheme} locations are not yet ported: {rest!r}")
+                    f"{scheme} locations are not yet ported (ROADMAP "
+                    f"Queue A item {item}): {rest!r}")
         if rest.startswith("file://"):
             path = urlsplit(rest).path
             if not path.startswith("/"):
@@ -299,9 +322,16 @@ class Location:
         try:
             base = await self._open_reader()
         except LocationError as err:
+            # a failed open: one health sample and one profiler entry
+            if cx.health is not None:
+                cx.health.record(self, False, _clock.monotonic() - start)
             if cx.profiler is not None:
                 cx.profiler.log_read(False, str(err), self, 0, start)
             raise
+        if cx.health is not None:
+            # the scoreboard times the open (time to first byte): how long
+            # the stream runs depends on its consumer, not on the node
+            cx.health.record(self, True, _clock.monotonic() - start)
         if cx.profiler is None:
             return base
         return _ProfiledReader(base, cx.profiler, self, start)
@@ -335,6 +365,8 @@ class Location:
         (src/file/location.rs:95-113)."""
         cx = cx or default_context()
         start = _clock.monotonic()
+        if cx.health is not None:
+            cx.health.begin(self)
         try:
             reader = await self._open_reader()
             try:
@@ -350,9 +382,20 @@ class Location:
                 # whole-buffer read leaks an fd
                 await aio.close_reader(reader)
         except LocationError as err:
+            if cx.health is not None:
+                cx.health.finish(self, False, _clock.monotonic() - start)
             if cx.profiler is not None:
                 cx.profiler.log_read(False, str(err), self, 0, start)
             raise
+        except BaseException:
+            # cancellation (a hedge loser) or another failure: close the
+            # in-flight count without a sample, since a cancelled racer
+            # says nothing about the node
+            if cx.health is not None:
+                cx.health.finish(self, None, None)
+            raise
+        if cx.health is not None:
+            cx.health.finish(self, True, _clock.monotonic() - start)
         if cx.profiler is not None:
             cx.profiler.log_read(True, None, self, len(out), start)
         return out
@@ -383,10 +426,12 @@ class Location:
         if cx.profiler is not None or aio.mmap_opted_out():
             return None
         rng = self.range
+        health = cx.health  # thread-safe scoreboard; _map runs off-loop
 
         def _map() -> Optional[memoryview]:
             import mmap
 
+            t0 = _clock.monotonic()
             try:
                 with open(self.target, "rb") as f:
                     mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
@@ -399,6 +444,10 @@ class Location:
                 # negative or short ranges: the generic path owns them
                 mm.close()
                 return None
+            if health is not None:
+                # only a served view is a sample: a None above means "the
+                # fast path does not apply", and the generic read records
+                health.record(self, True, _clock.monotonic() - t0)
             return memoryview(mm)[start:end]
 
         return _map
@@ -413,6 +462,8 @@ class Location:
         if self.range.is_specified():
             raise WriteToRangeError()
         start = _clock.monotonic()
+        if cx.health is not None:
+            cx.health.begin(self)
         try:
             if not (cx.on_conflict == IGNORE and await self.file_exists(cx)):
                 try:
@@ -420,11 +471,57 @@ class Location:
                 except OSError as err:
                     raise LocationError(str(err)) from err
         except LocationError as err:
+            if cx.health is not None:
+                cx.health.finish(self, False, _clock.monotonic() - start)
             if cx.profiler is not None:
                 cx.profiler.log_write(False, str(err), self, len(data), start)
             raise
+        except BaseException:
+            if cx.health is not None:
+                cx.health.finish(self, None, None)  # cancelled: no verdict
+            raise
+        if cx.health is not None:
+            cx.health.finish(self, True, _clock.monotonic() - start)
         if cx.profiler is not None:
             cx.profiler.log_write(True, None, self, len(data), start)
+
+    async def write_from_reader(self, reader: aio.AsyncByteReader,
+                                cx: Optional[LocationContext] = None) -> int:
+        """Streaming write of a reader's bytes, published atomically
+        (src/file/location.rs:246-309); returns the bytes written.
+        Profiler- and health-hooked like ``write``."""
+        cx = cx or default_context()
+        if self.range.is_specified():
+            raise WriteToRangeError()
+        if cx.on_conflict == IGNORE and await self.file_exists(cx):
+            return 0
+        start = _clock.monotonic()
+        # count on the reader side, so a stream that fails midway still
+        # profiles its partial progress
+        counted = aio.CountingReader(reader)
+        if cx.health is not None:
+            cx.health.begin(self)
+        try:
+            try:
+                total = await _atomic_publish_stream(counted, self.target)
+            except OSError as err:
+                raise LocationError(str(err)) from err
+        except LocationError as err:
+            if cx.health is not None:
+                cx.health.finish(self, False, _clock.monotonic() - start)
+            if cx.profiler is not None:
+                cx.profiler.log_write(False, str(err), self, counted.total,
+                                      start)
+            raise
+        except BaseException:
+            if cx.health is not None:
+                cx.health.finish(self, None, None)  # cancelled: no verdict
+            raise
+        if cx.health is not None:
+            cx.health.finish(self, True, _clock.monotonic() - start)
+        if cx.profiler is not None:
+            cx.profiler.log_write(True, None, self, total, start)
+        return total
 
     async def write_subfile(self, name: str, data: bytes,
                             cx: Optional[LocationContext] = None

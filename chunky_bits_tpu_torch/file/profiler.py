@@ -8,9 +8,10 @@ totals.  The logs are count-bounded drop-oldest rings whose drops are
 counted (in the report's ``Dropped<...>`` and in the metrics registry),
 and every ``log_request``/``log_read``/``log_write`` also records into
 the metrics registry and, when a trace is active, onto the trace.  The
-report also carries the counters of the host pipelines attached to it.
-Not ported yet: the attach points of the read cache, the location-health
-scoreboard, scrub, SLO and QoS sources, which come with their modules.
+report also carries the counters of the host pipelines and the table of
+the location-health scoreboards attached to it.  Not ported yet: the
+attach points of the read cache, scrub, SLO and QoS sources, which come
+with their modules.
 """
 
 from __future__ import annotations
@@ -161,6 +162,7 @@ class Profiler:
             maxlen=max_entries or self.MAX_ENTRIES)
         self._lock = threading.Lock()
         self._pipelines: list = []  # host pipelines whose counters we surface
+        self._healths: list = []  # location-health scoreboards ditto
         # per-location failure notes from the read fall-through
         # (fetch_chunk): which location failed / was corrupt and why —
         # the diagnosable trail the anonymous `except LocationError:
@@ -205,6 +207,19 @@ class Profiler:
         (PipelineStats)."""
         with self._lock:
             return [p.stats() for p in self._pipelines]
+
+    def attach_health(self, health) -> None:
+        """Register a location-health scoreboard (cluster/health.py) so
+        its per-location table (EWMA latency, error rate, breaker state,
+        hedges fired/won/cancelled) rides along in the report."""
+        with self._lock:
+            if all(h is not health for h in self._healths):
+                self._healths.append(health)
+
+    def health_stats(self) -> list:
+        """Snapshot of each attached scoreboard (HealthStats)."""
+        with self._lock:
+            return [h.stats() for h in self._healths]
 
     def log_location_failure(self, location, error: str) -> None:
         """A per-location read failure (unreadable or hash-mismatched)
@@ -295,9 +310,10 @@ class Profiler:
 class ProfileReport:
     def __init__(self, entries: list[ResultLog], pipeline_stats: list = (),
                  location_failures: list = (), requests: list = (),
-                 dropped: Optional[dict] = None):
+                 dropped: Optional[dict] = None, health_stats: list = ()):
         self.entries = entries
         self.pipeline_stats = list(pipeline_stats)
+        self.health_stats = list(health_stats)
         self.location_failures = list(location_failures)
         self.requests = list(requests)
         self.dropped = dict(dropped or {})
@@ -333,6 +349,8 @@ class ProfileReport:
         )
         for stats in self.pipeline_stats:
             base += f" {stats}"
+        for stats in self.health_stats:
+            base += f" {stats}"
         if self.requests:
             base += f" {request_stats(self.requests)}"
         if self.location_failures:
@@ -360,7 +378,8 @@ class ProfileReporter:
                              self._profiler.pipeline_stats(),
                              self._profiler.drain_location_failures(),
                              self._profiler.drain_requests(),
-                             self._profiler.drop_counts())
+                             self._profiler.drop_counts(),
+                             self._profiler.health_stats())
 
 
 def new_profiler() -> tuple[Profiler, ProfileReporter]:

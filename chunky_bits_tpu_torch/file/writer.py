@@ -63,7 +63,9 @@ class FileWriteBuilder:
     #: their metadata for damage localization; 0 = off
     repair_block_bytes: int = 0
     #: erasure code for every part this writer emits: "rs" (Reed-Solomon,
-    #: the default); "pm-msr" raises until its coder is ported
+    #: the default) or "pm-msr" (product-matrix MSR, ops/pm_msr.py; needs
+    #: parity >= data-1 and an alpha-divisible chunk size).  Cluster
+    #: profiles route their ``code`` knob here.
     code: str = "rs"
 
     # builder setters (writer.rs:78-110); return copies like the Rust

@@ -19,6 +19,11 @@ arrays at the JAX package's layouts (matrix ``[R, K]``, shards
   (ops/mesh_backend.py); ``cuda:<spec>`` (e.g. ``cuda:dp2,tp4``) - one
   explicit mesh (parallel/backend.py).  Both raise without a card.
 
+A cluster YAML written for the JAX package names that package's backends.
+``get_backend`` resolves them in one place (``canonical_backend_name``):
+``jax`` is ``cuda``, ``jax:<spec>`` is ``cuda:<spec>``, ``auto`` is the
+default, and ``native`` (the C++ host codec, not ported yet) raises.
+
 All of them produce byte-identical shards and digests; tests assert it.
 """
 
@@ -143,16 +148,43 @@ def register_backend(backend: ErasureBackend) -> None:
         _REGISTRY[backend.name] = backend
 
 
+#: the JAX package's backend names that the port runs on its own backends
+_ALIASES = {"jax": "cuda"}
+
+
+def canonical_backend_name(name: Optional[str] = None) -> str:
+    """The port's name for a backend as a user or a cluster YAML spells it.
+
+    ``None`` and ``auto`` are the default: ``$CHUNKY_BITS_TORCH_BACKEND``
+    if set, else ``cuda`` (never "the CPU if there is no card").  The JAX
+    package's names map to the card: ``jax`` to ``cuda`` and
+    ``jax:<spec>`` to ``cuda:<spec>``.  ``native`` is the JAX package's
+    C++ host codec, which the port has not yet, so it raises rather than
+    run on another host backend."""
+    if name is None or name == "auto":
+        from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
+                                                            env_str)
+
+        name = env_str(BACKEND_ENV) or "cuda"
+    if name == "native" or name.startswith("native:"):
+        raise ErasureError(
+            f"erasure backend {name!r} (the C++ host codec) is not yet "
+            f"ported (ROADMAP Queue A item 4); the port's CPU backends are "
+            f"'torch' and 'numpy'")
+    head, sep, spec = name.partition(":")
+    if head in _ALIASES:
+        return _ALIASES[head] + sep + spec
+    return name
+
+
 def get_backend(name: Optional[str] = None) -> ErasureBackend:
     """Resolve a backend by name, building it lazily.
 
     ``None`` resolves the default: ``$CHUNKY_BITS_TORCH_BACKEND`` if set,
-    else ``cuda``.  ``cuda`` raises ``ErasureError`` without a card.
+    else ``cuda``.  ``cuda`` raises ``ErasureError`` without a card.  The
+    JAX package's names resolve through ``canonical_backend_name``.
     """
-    if name is None:
-        from chunky_bits_tpu_torch.cluster.tunables import BACKEND_ENV, env_str
-
-        name = env_str(BACKEND_ENV) or "cuda"
+    name = canonical_backend_name(name)
     with _REGISTRY_LOCK:
         if name in _REGISTRY:
             return _REGISTRY[name]
@@ -246,7 +278,9 @@ _CODER_CACHE: dict[tuple[int, int, str, str], "ErasureCoder"] = {}
 _CODER_LOCK = threading.Lock()
 
 #: the closed set of erasure codes a part may declare (file/chunk.py
-#: ``code:`` field); the port codes ``rs`` so far and refuses ``pm-msr``
+#: ``code:`` field): classic Reed-Solomon and the product-matrix MSR
+#: regenerating code (ops/pm_msr.py).  Anything else is a foreign writer:
+#: readers fail cleanly rather than guess
 KNOWN_CODES = ("rs", "pm-msr")
 
 
@@ -258,7 +292,13 @@ class ErasureCoder:
     variants mirror the crate's per-part API and are thin wrappers.
     """
 
+    #: wire-format code name; the product-matrix MSR subclass
+    #: (ops/pm_msr.py) overrides it
     code = "rs"
+    #: whether a backend's fused ``encode_and_hash`` (``parity_rows``
+    #: applied to whole chunks) is valid for this code; sub-symbol codes
+    #: encode through their own ``encode_batch`` and hash on the host
+    supports_fused_ingest = True
 
     def __init__(self, data: int, parity: int,
                  backend: Optional[ErasureBackend] = None) -> None:
@@ -310,7 +350,8 @@ class ErasureCoder:
         """
         self._check_data(data)
         data = np.ascontiguousarray(data)
-        fused = getattr(self.backend, "encode_and_hash", None)
+        fused = (getattr(self.backend, "encode_and_hash", None)
+                 if self.supports_fused_ingest else None)
         if fused is not None:
             return fused(self.parity_rows, data)
         digests = np.empty((data.shape[0], self.data + self.parity, 32),
@@ -343,9 +384,11 @@ class ErasureCoder:
         backends' dispatch window), every batch is staged before any is
         collected, so batch k+1's copies and the host hash stage run
         while batch k computes; each parity block is hashed as it lands.
-        Other backends, and p = 0, just loop."""
+        Other backends, p = 0 and a code with its own encode math
+        (pm-msr's sub-symbol applies) just loop."""
         submit = getattr(self.backend, "submit_apply", None)
-        if submit is None or not self.parity:
+        if (submit is None or not self.parity
+                or type(self).encode_batch is not ErasureCoder.encode_batch):
             return [self.encode_hash_batch(b) for b in batches]
         collects = []
         for data in batches:
@@ -441,19 +484,24 @@ def get_coder(data: int, parity: int,
               backend: Optional[str] = None,
               code: str = "rs") -> ErasureCoder:
     """Cached coder lookup; matrices are rebuilt once per
-    (d, p, backend, code).  An unknown ``code`` raises ErasureError, and
-    so does ``pm-msr`` until its coder is ported."""
+    (d, p, backend, code).  ``code`` is the part's wire-format value
+    ("rs", or "pm-msr", the product-matrix MSR regenerating code); an
+    unknown value raises ErasureError, and so does a geometry pm-msr
+    cannot run."""
     if code not in KNOWN_CODES:
         raise ErasureError(
             f"unknown erasure code {code!r} (this reader knows "
             f"{', '.join(KNOWN_CODES)})")
-    if code == "pm-msr":
-        raise ErasureError("erasure code 'pm-msr' is not yet ported")
     be = get_backend(backend)
     key = (data, parity, be.name, code)
     with _CODER_LOCK:
         coder = _CODER_CACHE.get(key)
         if coder is None:
-            coder = ErasureCoder(data, parity, be)
+            if code == "pm-msr":
+                from chunky_bits_tpu_torch.ops.pm_msr import PMMSRCoder
+
+                coder = PMMSRCoder(data, parity, be)
+            else:
+                coder = ErasureCoder(data, parity, be)
             _CODER_CACHE[key] = coder
         return coder

@@ -169,6 +169,50 @@ async def close_reader(reader) -> None:
             await result
 
 
+class CountingReader:
+    """Pass-through reader that counts the bytes consumed (``.total``);
+    the base reader stays the caller's to close."""
+
+    def __init__(self, base):
+        self._base = base
+        self.total = 0
+
+    async def read(self, n: int = -1) -> bytes:
+        data = await self._base.read(n)
+        self.total += len(data)
+        return data
+
+
+async def copy_reader_to_file(reader: AsyncByteReader, path: str,
+                              chunk: int = 1 << 20) -> int:
+    """Streaming copy into ``path`` with the writes on a thread, double
+    buffered: the write of block n overlaps the read of block n+1 (the
+    reference's io_copy, src/bin/chunky-bits/util.rs:14-59).  The file is
+    opened through the filesystem seam.  Returns the bytes copied."""
+    from chunky_bits_tpu_torch.utils import fsio as _fsio
+
+    total = 0
+    f = await asyncio.to_thread(_fsio.open, path, "wb")
+    pending: Optional[asyncio.Future] = None
+    try:
+        while True:
+            data = await reader.read(chunk)
+            if pending is not None:
+                await pending
+                pending = None
+            if not data:
+                break
+            pending = asyncio.ensure_future(
+                asyncio.to_thread(f.write, data))
+            total += len(data)
+        await asyncio.to_thread(f.flush)
+    finally:
+        if pending is not None:
+            await asyncio.gather(pending, return_exceptions=True)
+        await asyncio.to_thread(f.close)
+    return total
+
+
 async def gather_or_cancel(awaitables):
     """``asyncio.gather`` with fail-fast cleanup: on the first error (or
     outer cancellation) cancel the sibling tasks and await them, so no

@@ -1,9 +1,9 @@
 """YAML via libyaml's C loader and dumper when available (the port of
 ``chunky_bits_tpu/utils/yamlio.py``).
 
-PyYAML is imported inside the functions, not with the module: the card's
-machine need not have it, and nothing on the card's path calls these
-(file references there go through ``to_obj()`` and JSON).  Semantics are
+PyYAML is imported inside the functions, not with the module, so the
+compute plane imports without it; the cluster and the CLI need it for
+their YAML files.  Semantics are
 ``yaml.safe_load``/``yaml.safe_dump``; the pure-Python classes stand in
 when PyYAML was built without libyaml.
 """

@@ -1,0 +1,423 @@
+"""The port's CLI (``chunky_bits_tpu_torch.cli.main``), held against the
+assertions of ``tests/test_cli.py``, and against the JAX package's CLI.
+
+Most tests call ``main(argv)`` in this process with standard input and
+output swapped for buffers (a subprocess pays a torch import, ~3 s); two
+run the ``python -m`` entry points.  A cluster written by either
+package's CLI must read back, verify and resilver identically through the
+other's.  Every call names a config file of its own, so nothing reads
+``/etc/chunky-bits.yaml``.
+"""
+
+import hashlib
+import io
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import yaml
+
+from chunky_bits_tpu.cli.main import main as jax_main
+from chunky_bits_tpu_torch.cli.cluster_location import ClusterLocation
+from chunky_bits_tpu_torch.cli.main import NOT_PORTED, build_parser
+from chunky_bits_tpu_torch.cli.main import main as port_main
+from tests.test_torch_file import bounded
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def torch_default(monkeypatch, tmp_path):
+    monkeypatch.setenv("CHUNKY_BITS_TORCH_BACKEND", "torch")
+    for knob in ("CODE", "METADATA_KIND", "CACHE_BYTES"):
+        monkeypatch.delenv("CHUNKY_BITS_TORCH_" + knob, raising=False)
+    (tmp_path / "config.yaml").write_text("")
+
+
+def call(main, tmp_path, *argv, stdin=b"", rc=0):
+    """``main(["--config", <empty>, *argv])`` with stdin, stdout and
+    stderr swapped for buffers; returns (stdout bytes, stderr text)."""
+    saved = sys.stdin, sys.stdout, sys.stderr
+    out = io.TextIOWrapper(io.BytesIO(), write_through=True)
+    err = io.StringIO()
+    sys.stdin = io.TextIOWrapper(io.BytesIO(stdin))
+    sys.stdout, sys.stderr = out, err
+    try:
+        got = bounded(lambda: main(
+            ["--config", str(tmp_path / "config.yaml"), *argv]))
+        out.flush()
+    finally:
+        sys.stdin, sys.stdout, sys.stderr = saved
+    assert got == rc, (argv, got, err.getvalue())
+    return out.buffer.getvalue(), err.getvalue()
+
+
+def cli(tmp_path, *argv, **kwargs):
+    return call(port_main, tmp_path, *argv, **kwargs)
+
+
+def make_cluster_yaml(root, name="cluster.yaml", n=5, d=3, p=2,
+                      chunk_size=16, backend=None):
+    dirs = []
+    for i in range(n):
+        dd = root / f"{name}.disk{i}"
+        dd.mkdir(parents=True)
+        dirs.append(str(dd))
+    meta = root / f"{name}.meta"
+    meta.mkdir()
+    spec = {
+        "destinations": [{"location": x} for x in dirs],
+        "metadata": {"type": "path", "format": "yaml", "path": str(meta)},
+        "profiles": {"default": {"data": d, "parity": p,
+                                 "chunk_size": chunk_size}},
+    }
+    if backend is not None:
+        spec["tunables"] = {"backend": backend}
+    path = root / name
+    path.write_text(yaml.safe_dump(spec))
+    return path
+
+
+@pytest.fixture
+def cluster_yaml(tmp_path):
+    return make_cluster_yaml(tmp_path)
+
+
+def ref_obj(tmp_path, conf, name):
+    return yaml.safe_load(cli(tmp_path, "file-info", f"{conf}#{name}")[0])
+
+
+def payload(n, seed=0):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, 256, n, dtype=np.uint8).tobytes()
+
+
+@pytest.mark.parametrize("text,kind,cluster,profile", [
+    ("mycluster#path/to/file", "cluster", "mycluster", None),
+    ("mycluster[fast]#path", "cluster", "mycluster", "fast"),
+    ("./cluster.yaml#file", "cluster", "./cluster.yaml", None),
+    ("@#/tmp/ref.yaml", "file_ref", None, None),
+    ("/tmp/file", "other", None, None),
+    ("-", "stdio", None, None),
+])
+def test_cluster_location_grammar(text, kind, cluster, profile):
+    loc = ClusterLocation.parse(text)
+    assert (loc.kind, loc.cluster, loc.profile) == (kind, cluster, profile)
+    assert str(loc) == text
+
+
+def test_cp_cat_roundtrip(cluster_yaml, tmp_path):
+    data = payload(256 * 1024 * 3 + 77, 1)
+    src = tmp_path / "input.bin"
+    src.write_bytes(data)
+    cli(tmp_path, "cp", str(src), f"{cluster_yaml}#files/input.bin")
+    out, _ = cli(tmp_path, "cat", f"{cluster_yaml}#files/input.bin")
+    assert hashlib.sha256(out).digest() == hashlib.sha256(data).digest()
+    meta = ref_obj(tmp_path, cluster_yaml, "files/input.bin")
+    assert meta["length"] == len(data)
+    ref_file = tmp_path / "input.ref"
+    ref_file.write_text(yaml.safe_dump(meta))
+    assert cli(tmp_path, "cat", f"@#{ref_file}")[0] == data
+    # cp to a plain path streams through Location.write_from_reader
+    cli(tmp_path, "cp", f"{cluster_yaml}#files/input.bin",
+        str(tmp_path / "copy.bin"))
+    assert (tmp_path / "copy.bin").read_bytes() == data
+
+
+def test_cp_from_stdin_and_ls(cluster_yaml, tmp_path):
+    data = b"stdin payload" * 1000
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#a/b/from-stdin", stdin=data)
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#file2", stdin=b"y")
+    assert cli(tmp_path, "cat", f"{cluster_yaml}#a/b/from-stdin")[0] == data
+    listing = cli(tmp_path, "ls", f"{cluster_yaml}#.")[0].decode() \
+        .splitlines()
+    assert "file2" in listing and "a" in listing
+    listing = cli(tmp_path, "ls", "-r", f"{cluster_yaml}#.")[0].decode() \
+        .splitlines()
+    assert "a/b/from-stdin" in listing and "file2" in listing
+
+
+def test_verify_and_resilver_cli(cluster_yaml, tmp_path):
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#victim",
+        stdin=payload(200000, 2))
+    meta = ref_obj(tmp_path, cluster_yaml, "victim")
+    victim = meta["parts"][0]["data"][0]["locations"][0]
+    os.remove(victim)
+    assert "Degraded" in cli(tmp_path, "verify",
+                             f"{cluster_yaml}#victim")[0].decode()
+    out = cli(tmp_path, "resilver", f"{cluster_yaml}#victim")[0].decode()
+    assert "Resilvered" in out or "Valid" in out
+    assert f"location\tUnavailable\t{victim}" in out
+    rebuilt = ref_obj(tmp_path, cluster_yaml, "victim")["parts"][0]["data"][0]
+    assert any(os.path.exists(loc) for loc in rebuilt["locations"])
+    assert cli(tmp_path, "verify", f"{cluster_yaml}#victim")[0] \
+        .startswith(b"file\tValid")
+
+
+def test_encode_decode_shards(tmp_path):
+    data = payload(10000, 3)
+    src = tmp_path / "src.bin"
+    src.write_bytes(data)
+    shards = [str(tmp_path / f"shard{i}") for i in range(5)]
+    geometry = ("--data-chunks", "3", "--parity-chunks", "2")
+    cli(tmp_path, *geometry, "encode-shards", str(src), *shards)
+    os.remove(shards[0])
+    os.remove(shards[4])
+    out, err = cli(tmp_path, *geometry, "decode-shards", *shards)
+    assert out[:len(data)] == data and len(out) >= len(data)
+    assert "Error" in err  # the two missing shards are named
+
+
+def test_file_info_and_get_hashes(cluster_yaml, tmp_path):
+    data = payload(70000, 4)
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#hashed", stdin=data)
+    info = yaml.safe_load(cli(tmp_path, "file-info",
+                              f"{cluster_yaml}#hashed")[0])
+    assert info == json.loads(cli(tmp_path, "file-info", "--json",
+                                  f"{cluster_yaml}#hashed")[0])
+    assert info["length"] == len(data)
+    hashes = cli(tmp_path, "get-hashes",
+                 f"{cluster_yaml}#hashed")[0].decode().split()
+    assert hashes == ["sha256-" + c["sha256"] for part in info["parts"]
+                      for c in part["data"] + part.get("parity", [])]
+    assert cli(tmp_path, "get-hashes", "--sort",
+               f"{cluster_yaml}#hashed")[0].decode().split() \
+        == sorted(set(hashes))
+
+
+def test_migrate(cluster_yaml, tmp_path):
+    """migrate references a file in place through range-sliced locations;
+    the ref is Degraded until resilver writes its parity."""
+    data = payload(150000, 5)
+    src = tmp_path / "existing.bin"
+    src.write_bytes(data)
+    cli(tmp_path, "migrate", str(src), f"{cluster_yaml}#migrated")
+    assert cli(tmp_path, "cat", f"{cluster_yaml}#migrated")[0] == data
+    first = ref_obj(tmp_path, cluster_yaml,
+                    "migrated")["parts"][0]["data"][0]["locations"][-1]
+    assert str(src) in first and first.startswith("(")
+    verify = cli(tmp_path, "verify", f"{cluster_yaml}#migrated")[0]
+    assert verify.splitlines()[0].strip().endswith(b"Degraded")
+    cli(tmp_path, "resilver", f"{cluster_yaml}#migrated")
+    verify = cli(tmp_path, "verify", f"{cluster_yaml}#migrated")[0]
+    assert verify.splitlines()[0].strip().endswith(b"Valid")
+    assert cli(tmp_path, "cat", f"{cluster_yaml}#migrated")[0] == data
+
+
+def test_find_unused_hashes(cluster_yaml, tmp_path):
+    data = payload(100000, 6)
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#live", stdin=data)
+    orphan = "sha256-" + hashlib.sha256(b"orphan").hexdigest()
+    orphan_path = tmp_path / "cluster.yaml.disk0" / orphan
+    orphan_path.write_bytes(b"orphan")
+    disks = [str(tmp_path / f"cluster.yaml.disk{i}") for i in range(5)]
+    # a fresh file is inside the grace window: an in-flight write's chunk
+    fresh = cli(tmp_path, "find-unused-hashes", f"{cluster_yaml}#.", "--",
+                *disks)[0].decode().split()
+    assert fresh == []
+    old = os.stat(orphan_path).st_mtime - 3600
+    os.utime(orphan_path, (old, old))
+    out = cli(tmp_path, "find-unused-hashes", f"{cluster_yaml}#.", "--",
+              *disks)[0].decode().split()
+    assert out == [orphan]
+    cli(tmp_path, "find-unused-hashes", "--remove", f"{cluster_yaml}#.",
+        "--", *disks)
+    assert not orphan_path.exists()
+    assert cli(tmp_path, "cat", f"{cluster_yaml}#live")[0] == data
+
+
+def test_cluster_info_and_config_info(tmp_path):
+    conf = make_cluster_yaml(tmp_path, backend="jax:dp2,tp4")
+    obj = yaml.safe_load(cli(tmp_path, "cluster-info", str(conf))[0])
+    assert len(obj["destinations"]) == 5
+    # the backend round-trips as written
+    assert obj["tunables"]["backend"] == "jax:dp2,tp4"
+    obj = json.loads(cli(tmp_path, "cluster-info", "--json", str(conf))[0])
+    assert obj["profiles"]["default"]["data_chunks"] == 3
+    obj = yaml.safe_load(cli(tmp_path, "config-info")[0])
+    assert obj["default_destination"]["type"] == "void"
+
+
+@pytest.mark.parametrize("argv,message", [
+    (("cat", "{conf}#does-not-exist"), "No such file"),
+    (("cat", "nonexistent-cluster#x"), "not defined"),
+    (("resilver", "/tmp/just-a-file"), "only supported on cluster"),
+    (("cp", "-", "slab:/tmp/x"), "slab locations are not yet ported"),
+    (("cp", "-", "http://host/x"), "http locations are not yet ported"),
+])
+def test_error_paths(cluster_yaml, tmp_path, argv, message):
+    argv = [a.format(conf=cluster_yaml) for a in argv]
+    _out, err = cli(tmp_path, *argv, rc=1)
+    assert message in err
+
+
+@pytest.mark.parametrize("command", sorted(NOT_PORTED))
+def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
+    _out, err = cli(tmp_path, command, str(cluster_yaml), "--once", rc=1)
+    assert f"{command} is not yet ported (ROADMAP Queue A item " \
+        f"{NOT_PORTED[command]})" in err
+
+
+def test_backend_help_names_the_ports_backends():
+    text = build_parser().format_help()
+    for name in ("cuda", "cuda:<spec>", "mesh", "torch", "numpy"):
+        assert name in text
+
+
+@pytest.mark.parametrize("backend,error", [
+    ("native", "not yet ported (ROADMAP Queue A item 4)"),
+    ("cuda", "CUDA is not available"),
+    ("jax", "CUDA is not available"),
+])
+def test_device_and_native_names_refuse_on_the_cpu(tmp_path, backend,
+                                                   error):
+    import torch
+
+    if torch.cuda.is_available() and backend != "native":
+        pytest.skip("a CUDA device is present")
+    conf = make_cluster_yaml(tmp_path, backend=backend)
+    _out, err = cli(tmp_path, "cp", "-", f"{conf}#x", stdin=b"data", rc=1)
+    assert error in err
+    assert not any(os.listdir(tmp_path / f"cluster.yaml.disk{i}")
+                   for i in range(5)), "nothing may be written"
+
+
+def test_broken_pipe_exits_quietly(cluster_yaml, tmp_path, monkeypatch):
+    """``cat | head``: a closed stdout ends the command with 141 and no
+    traceback, as the reference binary."""
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#pipe", stdin=payload(1 << 16))
+
+    class Closed(io.RawIOBase):
+        def writable(self):
+            return True
+
+        def write(self, b):
+            raise BrokenPipeError()
+
+    saved = sys.stdout
+    sys.stdout = io.TextIOWrapper(io.BufferedWriter(Closed()))
+    try:
+        got = bounded(lambda: port_main(
+            ["--config", str(tmp_path / "config.yaml"), "cat",
+             f"{cluster_yaml}#pipe"]))
+    finally:
+        sys.stdout = saved
+    assert got == 141
+
+
+def test_cp_cluster_to_cluster(cluster_yaml, tmp_path):
+    second = make_cluster_yaml(tmp_path, "cluster2.yaml", d=4, p=1,
+                               chunk_size=14)
+    data = payload(200000, 7)
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#src-obj", stdin=data)
+    cli(tmp_path, "cp", f"{cluster_yaml}#src-obj", f"{second}#dst-obj")
+    assert cli(tmp_path, "cat", f"{second}#dst-obj")[0] == data
+    meta = ref_obj(tmp_path, second, "dst-obj")
+    assert len(meta["parts"][0]["data"]) == 4
+    assert len(meta["parts"][0]["parity"]) == 1
+
+
+def test_python_decoder_interop(cluster_yaml, tmp_path):
+    """The reference's read-only decoder (python/chunky-bits.py)
+    reassembles a file the port wrote."""
+    data = payload(300000, 8)
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#files/interop", stdin=data)
+    ref_path = tmp_path / "interop.ref"
+    ref_path.write_text(yaml.safe_dump(ref_obj(tmp_path, cluster_yaml,
+                                               "files/interop")))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "python", "chunky-bits.py"),
+         str(ref_path)], capture_output=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert proc.stdout == data
+
+
+# ---- across the packages ----
+
+def relative(text: bytes, root) -> str:
+    return text.decode().replace(str(root), "<root>")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cluster_cli_across_packages(tmp_path, monkeypatch, writer):
+    """One package's CLI writes a cluster; the other's reads it back
+    byte-identically, and on two copies of the same damaged tree both
+    CLIs report the same verify and resilver, which each package then
+    reads back.  The JAX package runs on numpy (its ``--backend``), the
+    port on torch (its own environment variable)."""
+    monkeypatch.setenv("CHUNKY_BITS_TPU_BACKEND", "numpy")
+    clis = {"jax": lambda *a, **k: call(jax_main, tmp_path, "--backend",
+                                        "numpy", *a, **k),
+            "port": lambda *a, **k: cli(tmp_path, *a, **k)}
+    other = "port" if writer == "jax" else "jax"
+    trees = [tmp_path / "a", tmp_path / "b"]
+    conf = make_cluster_yaml(trees[0], d=3, p=2, chunk_size=12)
+    data = payload(5 * 3 * 4096 + 1234, 9)
+    # from standard input: the JAX package's ``cp`` leaves a file source
+    # for the collector to close
+    clis[writer]("cp", "-", f"{conf}#obj", stdin=data)
+    assert clis[other]("cat", f"{conf}#obj")[0] == data
+    info = {side: yaml.safe_load(clis[side]("file-info", f"{conf}#obj")[0])
+            for side in clis}
+    assert info["jax"] == info["port"]
+    for part in info[writer]["parts"]:
+        os.remove(part["data"][0]["locations"][0])
+    shutil.copytree(trees[0], trees[1])
+    conf_b = trees[1] / "cluster.yaml"
+    conf_b.write_text(conf.read_text().replace(str(trees[0]),
+                                               str(trees[1])))
+    (trees[1] / "cluster.yaml.meta" / "obj").write_text(
+        (trees[0] / "cluster.yaml.meta" / "obj").read_text().replace(
+            str(trees[0]), str(trees[1])))
+    for cmd in ("verify", "resilver", "verify"):
+        ours = clis[other](cmd, f"{conf}#obj")[0]
+        theirs = clis[writer](cmd, f"{conf_b}#obj")[0]
+        assert relative(ours, trees[0]) == relative(theirs, trees[1]), cmd
+    assert ours.startswith(b"file\tValid")
+    for side, root in ((writer, conf), (other, conf_b)):
+        assert clis[side]("cat", f"{root}#obj")[0] == data
+
+
+# ---- the python -m entry points ----
+
+def test_python_m_cat_of_a_cluster_object(cluster_yaml, tmp_path):
+    data = payload(3 * 65536 + 77, 10)
+    cli(tmp_path, "cp", "-", f"{cluster_yaml}#obj", stdin=data)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "chunky_bits_tpu_torch", "--config",
+         str(tmp_path / "config.yaml"), "cat", f"{cluster_yaml}#obj"],
+        capture_output=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr.decode()
+    assert proc.stdout == data
+
+
+def test_python_m_cli_cp_on_the_default_backend_refuses_without_a_card(
+        tmp_path):
+    """No backend named and none in the environment: the default is the
+    card, so without one ``cp`` exits non-zero with the ErasureError and
+    writes nothing through the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    conf = make_cluster_yaml(tmp_path)
+    src = tmp_path / "src.bin"
+    src.write_bytes(b"x" * 1000)
+    env = {k: v for k, v in os.environ.items()
+           if k != "CHUNKY_BITS_TORCH_BACKEND"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-m", "chunky_bits_tpu_torch.cli", "--config",
+         str(tmp_path / "config.yaml"), "cp", str(src), f"{conf}#obj"],
+        capture_output=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode != 0
+    assert b"CUDA is not available" in proc.stderr
+    assert not any(os.listdir(tmp_path / f"cluster.yaml.disk{i}")
+                   for i in range(5))
+    assert not os.listdir(tmp_path / "cluster.yaml.meta")

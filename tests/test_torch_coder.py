@@ -129,7 +129,8 @@ def test_numpy_encode_batcher_runs_unmerged_and_fails_alone(monkeypatch):
 
 
 def test_codes_and_names():
-    with pytest.raises(ErasureError, match="not yet ported"):
+    # pm-msr is ported; d=10 p=4 is a geometry it cannot run
+    with pytest.raises(ErasureError, match="parity >= data-1"):
         backend.get_coder(10, 4, "torch", code="pm-msr")
     with pytest.raises(ErasureError):
         backend.get_coder(10, 4, "torch", code="lrc")
