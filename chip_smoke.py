@@ -44,7 +44,21 @@ drives the main paths:
   resilver, cat); ``code: pm-msr`` at d=5 p=4 (~256 MiB: cp, cat, one
   chunk of every part lost, resilver, cat); and ``python -m
   chunky_bits_tpu_torch`` cp and cat in a subprocess on the default
-  backend.  Every cat equals the source.
+  backend.  Every cat equals the source;
+* the ``gateway`` group, the port's HTTP gateway: config 2 through
+  ``gateway.serve`` on a thread of this process (PUT of ~1 GiB with a
+  streamed body, GET, HEAD and the ETag, ``If-None-Match`` -> 304, an
+  in-chunk Range (the sendfile path) and a cross-part one, a Range past
+  the end -> 416, shards 0, 1, 12 and 13 of every part deleted and GET
+  again, ``/metrics`` through the port's parser, ``python -m
+  chunky_bits_tpu_torch stats``); BASELINE.md config 9's mix (d=3 p=2,
+  64 KiB chunks, a 2 MiB read cache; 200 keep-alive clients x 5 rounds
+  of hot, ranged, conditional, cold and large reads, every body held
+  against its source); ``http-gateway --workers 2`` in a subprocess,
+  through a worker's SIGKILL and the supervisor's SIGINT; and a config-2
+  cluster of ``http://`` destinations on a chunk node served from this
+  process (~256 MiB: cp, cat, shards 0, 1, 12 and 13 of every part
+  deleted on the node, cat, resilver, verify, cat).
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -1091,16 +1105,20 @@ def same_file(a: str, b: str) -> bool:
     return filecmp.cmp(a, b, shallow=False)
 
 
-def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs"
-                 ) -> str:
-    """A cluster of d+p ``path`` destinations under ``root``, a ``path``
-    metadata store and one profile of ``geo``; ``backend`` None leaves the
-    tunables out (the port's default backend)."""
+def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs",
+                 cache_bytes: int = 0, locations=None) -> str:
+    """A cluster of d+p ``path`` destinations under ``root`` (or of
+    ``locations``), a ``path`` metadata store and one profile of ``geo``;
+    ``backend`` None leaves it out (the port's default backend), and
+    ``cache_bytes`` above 0 turns the read cache on."""
     import yaml
 
-    dirs = [os.path.join(root, f"d{i}") for i in range(geo.d + geo.p)]
-    for d in dirs + [os.path.join(root, "meta")]:
-        os.makedirs(d)
+    dirs = locations
+    if dirs is None:
+        dirs = [os.path.join(root, f"d{i}") for i in range(geo.d + geo.p)]
+        for d in dirs:
+            os.makedirs(d)
+    os.makedirs(os.path.join(root, "meta"))
     spec = {
         "destinations": [{"location": d} for d in dirs],
         "metadata": {"type": "path", "format": "yaml",
@@ -1109,8 +1127,13 @@ def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs"
             "data": geo.d, "parity": geo.p,
             "chunk_size": geo.chunk.bit_length() - 1, "code": code}},
     }
+    tunables = {}
     if backend is not None:
-        spec["tunables"] = {"backend": backend}
+        tunables["backend"] = backend
+    if cache_bytes:
+        tunables["cache_bytes"] = cache_bytes
+    if tunables:
+        spec["tunables"] = tunables
     path = os.path.join(root, "cluster.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(spec, f, sort_keys=False)
@@ -1347,6 +1370,596 @@ def phase_cluster_cli(blob: bytes, path, counts, be, tp_be,
         log(f"cluster_cli entry point: python -m chunky_bits_tpu_torch cp "
             f"and cat of {SMALL_OBJECT} bytes on the default backend in "
             f"{time.perf_counter() - t0:.1f} s, byte-identical")
+    rec.close()
+    return expected
+
+
+# ---- the gateway group ----
+
+#: BASELINE config 9's shapes (bench.py:1211-1280): d=3 p=2, 64 KiB chunks
+#: over 5 path destinations, hot objects of 16 KiB, 256 KiB and 1 MiB, 24
+#: cold objects of 256 KiB, and a 2 MiB read cache that holds the hot
+#: tier but not the cold one
+CONFIG9 = Geometry(3, 2, 1 << 16, ())
+CONFIG9_SIZES = {"small": 16 << 10, "med": 256 << 10, "large": 1 << 20}
+CONFIG9_COLD, CONFIG9_COLD_BYTES = 24, 256 << 10
+CONFIG9_CACHE = 2 << 20
+GW_CLIENTS, GW_ROUNDS = 200, 5
+#: the config-2 gateway object's read cache, and the http-destination
+#: object: 25 parts and a tail (~256 MiB)
+GW_CACHE = 64 << 20
+HTTP_PARTS = 25
+
+
+class ServerThread:
+    """Runs ``serve(on_ready)`` (a coroutine that serves until cancelled
+    and reports its port through ``on_ready``) on an event loop of its
+    own thread, so this thread can be the client; ``stop`` cancels it
+    and joins the thread."""
+
+    def __init__(self, serve, label: str):
+        import threading
+
+        self.port = None
+        self.error = None
+        ready = threading.Event()
+
+        def on_ready(port: int) -> None:
+            self.port = port
+            ready.set()
+
+        def run() -> None:
+            self.loop = asyncio.new_event_loop()
+            self.task = self.loop.create_task(serve(on_ready))
+            try:
+                self.loop.run_until_complete(self.task)
+            except asyncio.CancelledError:
+                pass
+            except BaseException as err:  # reported by __init__ or stop
+                self.error = err
+                ready.set()
+            finally:
+                self.loop.run_until_complete(self.loop.shutdown_asyncgens())
+                self.loop.close()
+
+        self.thread = threading.Thread(target=run, name=label, daemon=True)
+        self.thread.start()
+        assert ready.wait(120), f"{label} never reported its port"
+        if self.error is not None:
+            raise self.error
+
+    def stop(self) -> None:
+        self.loop.call_soon_threadsafe(self.task.cancel)
+        self.thread.join(60)
+        assert not self.thread.is_alive(), "server thread did not stop"
+        if self.error is not None:
+            raise self.error
+
+
+def http_request(port: int, method: str, path: str, headers=None,
+                 body_parts=(), body_len=None):
+    """One request over a new connection: ``body_parts`` are sent as
+    they come (a streamed body of ``body_len`` bytes).  Returns (status,
+    headers, http.client response ready to read)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.putrequest(method, path)
+    for key, value in (headers or {}).items():
+        conn.putheader(key, value)
+    if body_len is not None:
+        conn.putheader("Content-Length", str(body_len))
+    conn.endheaders()
+    for part in body_parts:
+        conn.send(part)
+    resp = conn.getresponse()
+    return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp
+
+
+def read_and_match(resp, blob: bytes, lo: int, n: int) -> None:
+    """Read ``n`` body bytes off ``resp`` and hold them against bytes
+    [lo, lo + n) of the cyclic stream over ``blob``."""
+    got = 0
+    while got < n:
+        piece = resp.read(min(8 << 20, n - got))
+        assert piece, f"body ended at {got} of {n} bytes"
+        assert piece == source_slice(blob, lo + got, len(piece)), \
+            f"body differs from the source at byte {lo + got}"
+        got += len(piece)
+    assert resp.read() == b"", "body longer than Content-Length"
+    resp.close()
+
+
+class MiniConn:
+    """A raw keep-alive HTTP/1.1 GET client (bench.py's config-9 client):
+    status line, Content-Length bodies, body-less 304s."""
+
+    def __init__(self, port: int):
+        self.port = port
+
+    async def open(self):
+        self.reader, self.writer = await asyncio.open_connection(
+            "127.0.0.1", self.port)
+        return self
+
+    async def get(self, path: str, extra: str = "") -> tuple:
+        self.writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                          f"{extra}\r\n".encode())
+        await self.writer.drain()
+        status = int((await self.reader.readline()).split(b" ", 2)[1])
+        length, etag = 0, None
+        while True:
+            line = await self.reader.readline()
+            if line in (b"\r\n", b""):
+                break
+            key = line[:line.index(b":")].lower() if b":" in line else b""
+            if key == b"content-length":
+                length = int(line[15:])
+            elif key == b"etag":
+                etag = line[5:].strip().decode()
+        body = b""
+        if status not in (204, 304) and length:
+            body = await self.reader.readexactly(length)
+        return status, body, etag
+
+    async def close(self) -> None:
+        self.writer.close()
+        await asyncio.wait_for(self.writer.wait_closed(), timeout=5)
+
+
+def running(pid: int) -> bool:
+    """True while ``pid`` is a process that has not exited (a zombie
+    has)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def parse_metrics(port: int) -> dict:
+    from chunky_bits_tpu_torch.obs.metrics import parse_exposition
+
+    status, _h, resp = http_request(port, "GET", "/metrics")
+    assert status == 200, status
+    return parse_exposition(resp.read().decode())
+
+
+class ChunkNode:
+    """A storage node for ``http://`` destinations: GET (with a single
+    Range) and HEAD through aiohttp's FileResponse, PUT published by
+    rename, DELETE, over a directory.  The counterpart of the test suite's
+    node server, served from this process."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def file(self, url_path: str) -> str:
+        rel = url_path.lstrip("/")
+        assert ".." not in rel.split("/"), url_path
+        return os.path.join(self.root, rel)
+
+    async def serve(self, on_ready) -> None:
+        from aiohttp import web
+
+        async def get(request):
+            path = self.file(request.path)
+            if not os.path.isfile(path):
+                return web.Response(status=404)
+            return web.FileResponse(path)
+
+        async def put(request):
+            path = self.file(request.path)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.part.{id(request)}"
+            with open(tmp, "wb") as f:
+                async for piece in request.content.iter_chunked(1 << 20):
+                    f.write(piece)
+            os.replace(tmp, path)
+            return web.Response()
+
+        async def delete(request):
+            try:
+                os.remove(self.file(request.path))
+            except FileNotFoundError:
+                return web.Response(status=404)
+            return web.Response()
+
+        app = web.Application(client_max_size=64 << 20)
+        app.router.add_get("/{key:.*}", get)
+        app.router.add_put("/{key:.*}", put)
+        app.router.add_delete("/{key:.*}", delete)
+        runner = web.AppRunner(app)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        on_ready(site._server.sockets[0].getsockname()[1])
+        try:
+            await asyncio.Event().wait()
+        finally:
+            await runner.cleanup()
+
+
+def phase_gateway(blob: bytes, path, counts, be, tp_rec) -> dict:
+    """The gateway group: the port's HTTP gateway serving from the card.
+    (1) config 2 through ``serve`` in this process (PUT, GET, HEAD/ETag,
+    304, an in-chunk and a cross-part Range, 416, shards 0, 1, 12 and 13
+    of every part lost and GET again, /metrics, ``stats``); (2) BASELINE
+    config 9's mix, 200 keep-alive clients x 5 rounds, every body held
+    against its source; (3) ``http-gateway --workers 2`` in a subprocess
+    through a worker's SIGKILL; (4) a config-2 cluster of ``http://``
+    destinations on a node served from this process, through cp, cat,
+    lost shards, cat, resilver, verify and cat.  Each in-process step is
+    a path of its own for the launch counts, checked against the
+    ``cuda`` backend's recorded dispatches (K1) and the tp mesh's (K2 and
+    the reduce-and-pack, none here)."""
+    import signal
+    import tempfile
+
+    from chunky_bits_tpu_torch.cluster import Cluster
+    from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
+                                                        environ_without)
+    from chunky_bits_tpu_torch.file.profiler import percentile
+    from chunky_bits_tpu_torch.gateway import serve
+    from chunky_bits_tpu_torch.utils.yamlio import yaml_load
+
+    expected = {}
+    rec = ApplyRecorder(be)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def step(name: str, fn, *args, nbytes: int = 0, k1: bool = False):
+        t0 = time.perf_counter()
+        out = path(name, fn, *args)
+        dt = time.perf_counter() - t0
+        want, mesh = rec.expected(), tp_rec.expected()
+        expected[name] = {k: want[k] + mesh[k] for k in KERNELS}
+        if k1:
+            assert counts[name]["gf_apply"] > 0 and want["gf_apply"] > 0, \
+                (name, counts[name], want)
+        log(f"  {name}: {dt:.2f} s"
+            + (f", {gib_s(nbytes, dt):.2f} GiB/s" if nbytes else "")
+            + f", K1 launches {counts[name]['gf_apply']}")
+        return out
+
+    def start_gateway(conf: str) -> ServerThread:
+        with open(conf) as f:
+            cluster = Cluster.from_obj(yaml_load(f.read()))
+
+        def run(on_ready):
+            return serve(cluster, "127.0.0.1", 0, on_ready=on_ready)
+
+        server = ServerThread(run, "gateway")
+        server.cluster = cluster
+        return server
+
+    with tempfile.TemporaryDirectory(prefix="cb-gw-") as root:
+        # ---- (1) config 2 through serve(), in this process ----
+        top = os.path.join(root, "c2")
+        os.makedirs(top)
+        conf = cluster_yaml(top, CONFIG2, "cuda", cache_bytes=GW_CACHE)
+        total = DISK_PARTS * D * CHUNK + TAIL
+        gw = start_gateway(conf)
+        port = gw.port
+        log(f"gateway config 2: {total / 2**30:.3f} GiB over {D + P} path "
+            f"destinations, backend: cuda, cache_bytes "
+            f"{GW_CACHE >> 20} MiB, http://127.0.0.1:{port}")
+
+        def put_object():
+            parts = (source_slice(blob, lo, min(8 << 20, total - lo))
+                     for lo in range(0, total, 8 << 20))
+            status, _h, resp = http_request(
+                port, "PUT", "/obj", {"Content-Type": "application/x-cb"},
+                parts, total)
+            resp.read()
+            assert status == 200, status
+
+        def get_range(headers, lo, n, want_status):
+            status, hdrs, resp = http_request(port, "GET", "/obj", headers)
+            assert status == want_status, (status, headers)
+            assert int(hdrs["content-length"]) == n, hdrs
+            read_and_match(resp, blob, lo, n)
+            return hdrs
+
+        step("gw_put", put_object, nbytes=total, k1=True)
+        hdrs = step("gw_get", get_range, {}, 0, total, 200, nbytes=total,
+                    k1=True)
+        assert hdrs["content-type"] == "application/x-cb", hdrs
+        etag = hdrs["etag"]
+
+        def head_and_304():
+            status, h, resp = http_request(port, "HEAD", "/obj")
+            resp.read()
+            assert status == 200 and h["etag"] == etag, (status, h)
+            assert int(h["content-length"]) == total, h
+            status, h, resp = http_request(port, "GET", "/obj",
+                                           {"If-None-Match": etag})
+            assert status == 304 and resp.read() == b"", status
+            assert h["etag"] == etag, h
+
+        step("gw_head_304", head_and_304)
+        # inside one data chunk of part 37, and across parts 60 and 61
+        lo = DISK_PARTS * 3 // 8 * D * CHUNK + 3 * CHUNK + 12345
+        h = step("gw_range_in_chunk", get_range,
+                 {"Range": f"bytes={lo}-{lo + 99999}"}, lo, 100000, 206)
+        assert h["content-range"] == f"bytes {lo}-{lo + 99999}/{total}", h
+        lo = DISK_PARTS * 61 // 100 * D * CHUNK - 3 * CHUNK - 777
+        n = 7 * CHUNK
+        h = step("gw_range_cross_part", get_range,
+                 {"Range": f"bytes={lo}-{lo + n - 1}"}, lo, n, 206)
+        assert h["content-range"] == f"bytes {lo}-{lo + n - 1}/{total}", h
+
+        def past_end():
+            status, h, resp = http_request(
+                port, "GET", "/obj", {"Range": f"bytes={total + 5}-"})
+            resp.read()
+            assert status == 416, status
+            assert h["content-range"] == f"bytes */{total}", h
+
+        step("gw_range_416", past_end)
+        lost = damage_chunks(os.path.join(top, "meta", "obj"),
+                             lambda _i: LOST)
+        step("gw_get_degraded", get_range, {}, 0, total, 200,
+             nbytes=total, k1=True)
+        log(f"  {len(lost)} chunk files deleted (shards {LOST} of every "
+            f"part): the GET rebuilt them, byte-identical")
+        fams = step("gw_metrics", parse_metrics, port)
+        for name in ("cb_worker_up", "cb_request_total", "cb_build_info",
+                     "cb_cache_hits_total", "cb_pipeline_jobs_total"):
+            assert name in fams, name
+        sources = {s[1]["source"] for s in
+                   fams["cb_request_total"]["samples"]}
+        assert {"sendfile", "cond", "meta"} <= sources, sources
+        out = subprocess.run(
+            [sys.executable, "-m", "chunky_bits_tpu_torch", "--config",
+             os.devnull, "stats", f"http://127.0.0.1:{port}"], cwd=here,
+            env=environ_without(BACKEND_ENV), check=True, timeout=300,
+            capture_output=True, text=True).stdout
+        assert "requests: n=" in out and "status=ok" in out, out
+        log(f"  /metrics parsed ({len(fams)} families, sources "
+            f"{sorted(sources)}); `stats` rc 0: "
+            f"{out.splitlines()[1] if len(out.splitlines()) > 1 else out}")
+        gw.stop()
+        del gw
+        stamp("gateway config 2")
+
+        # ---- (2) BASELINE config 9's mix, in this process ----
+        top = os.path.join(root, "c9")
+        os.makedirs(top)
+        conf9 = cluster_yaml(top, CONFIG9, "cuda",
+                             cache_bytes=CONFIG9_CACHE)
+        rng = np.random.default_rng(SEED + 9)
+        payloads = {name: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                    for name, n in CONFIG9_SIZES.items()}
+        for i in range(CONFIG9_COLD):
+            payloads[f"cold{i}"] = rng.integers(
+                0, 256, CONFIG9_COLD_BYTES, dtype=np.uint8).tobytes()
+        gw = start_gateway(conf9)
+        port = gw.port
+        chunk = CONFIG9.chunk
+
+        def put_all():
+            for name, data in payloads.items():
+                status, _h, resp = http_request(port, "PUT", f"/{name}",
+                                                body_parts=(data,),
+                                                body_len=len(data))
+                resp.read()
+                assert status == 200, (name, status)
+
+        step("gw9_put", put_all, k1=True,
+             nbytes=sum(len(v) for v in payloads.values()))
+        lat: dict = {"full": [], "range": [], "cond": [], "cold": [],
+                     "large": []}
+
+        async def mix() -> int:
+            warm = await MiniConn(port).open()
+            etags = {}
+            for name in ("small", "med", "large"):
+                status, body, etags[name] = await warm.get(f"/{name}")
+                assert status == 200 and body == payloads[name], name
+            await warm.close()
+            med, small = payloads["med"], payloads["small"]
+
+            async def one_client(ci: int) -> int:
+                import random
+
+                done = 0
+                crng = random.Random(ci)
+                conn = await MiniConn(port).open()
+                try:
+                    for r_i in range(GW_ROUNDS):
+                        t0 = time.perf_counter()
+                        status, body, _e = await conn.get("/small")
+                        lat["full"].append(time.perf_counter() - t0)
+                        assert status == 200 and body == small
+                        start = crng.randrange(0, len(med) - chunk)
+                        start -= start % chunk
+                        t0 = time.perf_counter()
+                        status, body, _e = await conn.get(
+                            "/med", f"Range: bytes={start}-"
+                                    f"{start + chunk - 1}\r\n")
+                        lat["range"].append(time.perf_counter() - t0)
+                        assert status == 206
+                        assert body == med[start:start + chunk]
+                        t0 = time.perf_counter()
+                        status, body, _e = await conn.get(
+                            "/small",
+                            f"If-None-Match: {etags['small']}\r\n")
+                        lat["cond"].append(time.perf_counter() - t0)
+                        assert status == 304 and body == b""
+                        name = f"cold{(ci + r_i * 7) % CONFIG9_COLD}"
+                        span = min(4096, chunk // 2)
+                        start = (chunk - span // 2 if (ci + r_i) % 2
+                                 else chunk // 4)
+                        t0 = time.perf_counter()
+                        status, body, _e = await conn.get(
+                            f"/{name}", f"Range: bytes={start}-"
+                                        f"{start + span - 1}\r\n")
+                        lat["cold"].append(time.perf_counter() - t0)
+                        assert status == 206
+                        assert body == payloads[name][start:start + span]
+                        done += 4
+                        if ci % 8 == 0:
+                            t0 = time.perf_counter()
+                            status, body, _e = await conn.get("/large")
+                            lat["large"].append(time.perf_counter() - t0)
+                            assert status == 200
+                            assert body == payloads["large"]
+                            done += 1
+                finally:
+                    await conn.close()
+                return done
+
+            return sum(await asyncio.gather(
+                *[one_client(i) for i in range(GW_CLIENTS)]))
+
+        def run_mix():
+            # the server's read cache is made at its first GET, here
+            t0 = time.perf_counter()
+            n = asyncio.run(mix())
+            wall = time.perf_counter() - t0
+            caches = list(gw.cluster._chunk_caches.values())
+            return (n, wall, sum(c.hits for c in caches),
+                    sum(c.misses for c in caches))
+
+        n, wall, hits, misses = step("gw9_mix", run_mix, k1=True)
+        every = sorted(v for vs in lat.values() for v in vs)
+        assert len(every) == n
+        log(f"  config 9 mix: {GW_CLIENTS} keep-alive clients x "
+            f"{GW_ROUNDS} rounds, {n} requests in {wall:.2f} s = "
+            f"{n / wall:.0f} requests/s, p50 "
+            f"{percentile(every, 50) * 1e3:.2f} ms, p99 "
+            f"{percentile(every, 99) * 1e3:.2f} ms; cache hit share "
+            f"{hits / max(hits + misses, 1):.3f} ({hits} hits, {misses} "
+            f"misses); every body equal to its source")
+        for kind in ("full", "range", "cond", "cold", "large"):
+            vals = sorted(lat[kind])
+            log(f"    {kind}: n={len(vals)} p50 "
+                f"{percentile(vals, 50) * 1e3:.2f} ms p99 "
+                f"{percentile(vals, 99) * 1e3:.2f} ms")
+        gw.stop()
+        del gw
+        stamp("gateway config 9 mix")
+
+        # ---- (3) two workers through the CLI, in a subprocess ----
+        top = os.path.join(root, "fleet")
+        os.makedirs(top)
+        conf_f = cluster_yaml(top, CONFIG9, "cuda",
+                              cache_bytes=CONFIG9_CACHE)
+        t0 = time.perf_counter()
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "chunky_bits_tpu_torch", "--config",
+             os.devnull, "http-gateway", conf_f, "-l", "127.0.0.1:0",
+             "--workers", "2"], cwd=here, stdout=subprocess.PIPE,
+            text=True)
+        try:
+            line = sup.stdout.readline()
+            m = re.search(r"http://127\.0\.0\.1:(\d+) \(2 workers\)", line)
+            assert m, f"supervisor said {line!r}"
+            port = int(m.group(1))
+            deadline = time.time() + 120
+            pids = []
+            while time.time() < deadline:
+                fam = parse_metrics(port).get("cb_worker_up")
+                pids = sorted({int(s[1]["worker"])
+                               for s in (fam or {"samples": []})["samples"]})
+                if len(pids) == 2:
+                    break
+                time.sleep(0.5)
+            assert len(pids) == 2, pids
+            log(f"gateway --workers 2: up with workers {pids} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            names = ("small", "med", "large", "cold0")
+            for name in names:
+                status, _h, resp = http_request(
+                    port, "PUT", f"/{name}", body_parts=(payloads[name],),
+                    body_len=len(payloads[name]))
+                resp.read()
+                assert status == 200, (name, status)
+            for _ in range(3):
+                for name in names:
+                    status, _h, resp = http_request(port, "GET", f"/{name}")
+                    assert status == 200 and resp.read() == payloads[name]
+            os.kill(pids[0], signal.SIGKILL)
+            served = 0
+            for _ in range(100):
+                try:
+                    status, _h, resp = http_request(port, "GET", "/med")
+                    if status == 200:
+                        assert resp.read() == payloads["med"]
+                        served += 1
+                except (ConnectionError, OSError):
+                    pass
+                if served >= 20:
+                    break
+            assert served >= 20, served
+            log(f"  worker {pids[0]} SIGKILLed: {served} GETs answered "
+                f"byte-identical after it")
+        finally:
+            sup.send_signal(signal.SIGINT)
+            rc = sup.wait(timeout=60)
+            sup.stdout.close()
+        assert rc == 0, rc
+        deadline = time.time() + 30
+        while time.time() < deadline and any(map(running, pids)):
+            time.sleep(0.2)
+        assert not any(map(running, pids)), pids
+        log(f"  SIGINT: the supervisor exited rc 0 and every worker with "
+            f"it, {time.perf_counter() - t0:.1f} s in all")
+        stamp("gateway workers")
+
+        # ---- (4) http:// destinations on a node in this process ----
+        node = ChunkNode(os.path.join(root, "node"))
+        node_server = ServerThread(node.serve, "chunk node")
+        try:
+            base = f"http://127.0.0.1:{node_server.port}"
+            top = os.path.join(root, "h2")
+            os.makedirs(top)
+            conf = cluster_yaml(top, CONFIG2, "cuda", locations=[
+                f"{base}/d{i}/" for i in range(D + P)])
+            total = HTTP_PARTS * D * CHUNK + TAIL
+            src = os.path.join(root, "srch.bin")
+            write_source(src, blob, total)
+            out = os.path.join(root, "out")
+            txt = os.path.join(root, "stdout.txt")
+            obj = f"{conf}#obj"
+            log(f"gateway http destinations: {total / 2**30:.3f} GiB over "
+                f"{D + P} http://127.0.0.1 destinations, backend: cuda")
+            step("http_cp", run_cli, ["cp", src, obj], txt, nbytes=total,
+                 k1=True)
+            step("http_cat", run_cli, ["cat", obj], out, nbytes=total,
+                 k1=True)
+            assert same_file(src, out), "http cat differs"
+            with open(os.path.join(top, "meta", "obj")) as f:
+                ref = yaml_load(f.read())
+            lost = []
+            digests = [c["sha256"] for part in ref["parts"]
+                       for c in part["data"] + part["parity"]]
+            for part in ref["parts"]:
+                row = part["data"] + part["parity"]
+                for j in LOST:
+                    assert digests.count(row[j]["sha256"]) == 1
+                    url = row[j]["locations"][0]
+                    assert url.startswith(base), url
+                    os.remove(node.file(url[len(base):]))
+                    lost.append(url)
+            step("http_cat_degraded", run_cli, ["cat", obj], out,
+                 nbytes=total, k1=True)
+            assert same_file(src, out), "degraded http cat differs"
+            report = step("http_resilver", run_cli, ["resilver", obj], txt,
+                          nbytes=len(lost) * CHUNK, k1=True).decode()
+            check_resilver(report, HTTP_PARTS + 1)
+            report = step("http_verify", run_cli, ["verify", obj],
+                          txt).decode()
+            assert report.startswith("file\tValid"), report[:200]
+            step("http_cat_resilvered", run_cli, ["cat", obj], out,
+                 nbytes=total, k1=True)
+            assert same_file(src, out), "http cat after resilver differs"
+            log(f"  {len(lost)} chunks deleted on the node, rebuilt by "
+                f"the degraded cat and resilvered (verify Valid); every "
+                f"cat equals the source")
+        finally:
+            node_server.stop()
+        stamp("gateway http destinations")
     rec.close()
     return expected
 
@@ -2118,6 +2731,9 @@ def main() -> int:
     expected.update(phase_cluster_cli(blob, path, counts, be, tp_be,
                                       tp_rec))
     stamp("cluster_cli")
+
+    # the gateway group: the HTTP gateway and http:// destinations
+    expected.update(phase_gateway(blob, path, counts, be, tp_rec))
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")

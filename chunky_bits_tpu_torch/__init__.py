@@ -6,8 +6,9 @@ reference).  Files are split into parts of ``d`` data + ``p`` parity chunks
 content-addressed by SHA-256.  The compute plane is the GF(2^8) transform
 and per-shard SHA-256 as CUDA kernels written for Hopper (``csrc/``), the
 ``ErasureCoder`` that drives them and the batchers; above it sit the
-object codec (``file/``), the cluster (``cluster/``) and the
-``chunky-bits`` CLI (``cli/``, ``python -m chunky_bits_tpu_torch``).
+object codec (``file/``), the cluster (``cluster/``), the HTTP gateway
+(``gateway/``) and the ``chunky-bits`` CLI (``cli/``, ``python -m
+chunky_bits_tpu_torch``).
 Every kernel has a plain PyTorch version beside it, which runs for tensors
 on the CPU.
 

@@ -5,10 +5,10 @@ Mirrors src/bin/chunky-bits/main.rs: global overrides ``--config``,
 ``--chunk-size``, ``--data-chunks``, ``--parity-chunks`` (:76-93), the
 port's ``--backend``, and the subcommands (:96-177): cat, config-info,
 cluster-info, cp, decode-shards, encode-shards, file-info,
-find-unused-hashes, get-hashes, ls, migrate, resilver and verify.  The
-JAX package's serving and storage-ops commands parse but raise "not yet
-ported": ``http-gateway`` and ``stats`` (ROADMAP Queue A item 5),
-``scrub`` and ``meta-compact`` (item 6).
+find-unused-hashes, get-hashes, http-gateway, ls, migrate, resilver,
+stats and verify.  The JAX package's storage-ops commands parse but
+raise "not yet ported": ``scrub`` and ``meta-compact`` (ROADMAP Queue A
+item 6).
 
 Cluster locations are formatted ``cluster-name#path/to/file``; a location
 for the cluster definition may be used instead of a name
@@ -107,8 +107,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--sort", action="store_true")
     p.add_argument("target")
 
-    _not_ported(sub, "http-gateway",
-                 "Provide a HTTP Gateway for a cluster")
+    p = sub.add_parser("http-gateway",
+                       help="Provide a HTTP Gateway for a cluster")
+    p.add_argument("cluster")
+    p.add_argument("-l", "--listen-addr", default="127.0.0.1:8000")
+    p.add_argument("--max-put-size", type=int, default=None,
+                   help="Reject PUT bodies larger than this many bytes")
+    p.add_argument("--max-concurrent-puts", type=int, default=32,
+                   help="Bound concurrent PUT ingests; 0 means unbounded "
+                        "(default 32)")
+    p.add_argument("--min-put-rate", type=int, default=256,
+                   help="Abort PUTs averaging below this many bytes/sec "
+                        "after a grace period; 0 disables (default 256)")
+    p.add_argument("--max-concurrent-gets", type=int, default=256,
+                   help="Shed GETs beyond this many in flight with "
+                        "503 + Retry-After (per worker); 0 means "
+                        "unbounded (default 256)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="Serve with N pre-forked SO_REUSEPORT worker "
+                        "processes (default: "
+                        "$CHUNKY_BITS_TORCH_GATEWAY_WORKERS, else 1)")
 
     p = sub.add_parser("ls", help="List the files in a cluster directory")
     p.add_argument("-r", "--recursive", action="store_true")
@@ -128,8 +146,16 @@ def build_parser() -> argparse.ArgumentParser:
 
     _not_ported(sub, "scrub",
                  "Continuously verify and repair cluster chunks")
-    _not_ported(sub, "stats",
-                "Render a running gateway's statistics")
+    p = sub.add_parser(
+        "stats",
+        help="Fetch a running gateway's /stats, /healthz, /scrub/status,"
+             " /alerts and /metrics and render a one-screen summary")
+    p.add_argument("--json", action="store_true",
+                   help="emit the combined raw JSON payloads instead")
+    p.add_argument("--watch", type=float, default=0.0, metavar="N",
+                   help="redraw every N seconds until ctrl-c (0 = one "
+                        "shot, the default)")
+    p.add_argument("url", help="gateway base URL (host:port or http://…)")
 
     p = sub.add_parser("verify", help="Verify a cluster file")
     p.add_argument("target")
@@ -139,7 +165,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: subcommands of the JAX package whose modules the port has not yet, and
 #: the ROADMAP Queue A item that brings each
-NOT_PORTED = {"http-gateway": 5, "stats": 5, "scrub": 6, "meta-compact": 6}
+NOT_PORTED = {"scrub": 6, "meta-compact": 6}
 
 
 def _not_ported(sub, name: str, help_: str) -> None:
@@ -290,6 +316,26 @@ async def _run_command(args, config) -> int:
         target = ClusterLocation.parse(args.target)
         report = await target.resilver(config)
         print(report.display_full_report())
+    elif cmd == "http-gateway":
+        from chunky_bits_tpu_torch.gateway import serve
+
+        cluster = await config.get_cluster(args.cluster)
+        host, sep, port = args.listen_addr.rpartition(":")
+        if not sep or not port.isdigit():
+            raise ChunkyBitsError(
+                f"invalid --listen-addr {args.listen_addr!r} "
+                "(expected host:port)")
+        await serve(cluster, host or "127.0.0.1", int(port),
+                    max_put_bytes=args.max_put_size,
+                    max_concurrent_puts=args.max_concurrent_puts,
+                    min_put_rate=args.min_put_rate,
+                    max_concurrent_gets=args.max_concurrent_gets,
+                    workers=args.workers)
+    elif cmd == "stats":
+        from chunky_bits_tpu_torch.cli.stats import stats_command
+
+        return await stats_command(args.url, args.json,
+                                   watch_s=max(args.watch, 0.0))
     elif cmd == "verify":
         target = ClusterLocation.parse(args.target)
         report = await target.verify(config)

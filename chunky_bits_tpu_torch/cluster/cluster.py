@@ -15,7 +15,10 @@ On a device backend (``Tunables.is_device_backend``: ``cuda``, a
 ``cuda:<spec>`` mesh, ``mesh`` and their JAX-package spellings) concurrent
 writes share one encode batcher per event loop, and every read shares one
 reconstruct batcher per loop, so their parts reach the card in batched
-dispatches.
+dispatches.  With the ``cache_bytes`` tunable above 0 every read of a
+loop also shares one content-addressed chunk cache
+(``file/chunk_cache.py``), and parsed file references are cached,
+fenced by every write of the same path.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import asyncio
 import threading
 import weakref
+from collections import OrderedDict
 from typing import Optional, Union
 
 from chunky_bits_tpu_torch.cluster.destination import Destination
@@ -59,6 +63,16 @@ class Cluster:
         # per-event-loop shared reconstruct batchers (see
         # _reconstruct_batcher)
         self._reconstruct_batchers = weakref.WeakKeyDictionary()
+        # per-event-loop content-addressed chunk caches (see
+        # _chunk_cache); only when tunables.cache_bytes > 0
+        self._chunk_caches = weakref.WeakKeyDictionary()
+        # parsed FileReference cache (only when caching is on): hot GETs
+        # skip the metadata read + YAML parse.  Bounded LRU; every write
+        # of a path invalidates it, and the generation counter keeps a
+        # read that was in flight across a write from inserting the old
+        # reference
+        self._file_refs: "OrderedDict[str, FileReference]" = OrderedDict()
+        self._file_ref_gen = 0
         # cluster-pinned host pipeline (tunables.host_threads > 0), else
         # the process-shared one (see host_pipeline()); the lock makes
         # first-use construction single — clusters are already used from
@@ -219,7 +233,17 @@ class Cluster:
 
     async def write_file_ref(self, path: str,
                              file_ref: FileReference) -> None:
-        await self.metadata.write(path, file_ref.to_obj())
+        # invalidate around both edges of the durable write: the bump
+        # before it fences get_file_ref calls already parsing the old
+        # bytes, the bump after it fences calls that started during the
+        # write; either way a stale parse is never inserted
+        self._file_ref_gen += 1
+        self._file_refs.pop(path, None)
+        try:
+            await self.metadata.write(path, file_ref.to_obj())
+        finally:
+            self._file_ref_gen += 1
+            self._file_refs.pop(path, None)
 
     async def write_file(self, path: str, reader: aio.AsyncByteReader,
                          profile: ClusterProfile,
@@ -245,6 +269,10 @@ class Cluster:
 
     # ---- read path ----
 
+    #: FileReference cache bound (entries, not bytes: a parsed reference
+    #: is tiny next to the chunk buffers the byte budget governs)
+    FILE_REF_CACHE_ENTRIES = 1024
+
     def _reconstruct_batcher(self):
         """Per-event-loop shared ReconstructBatcher, mirroring
         ``_encode_batcher``: concurrent degraded GETs (and resilver-like
@@ -261,20 +289,48 @@ class Cluster:
             self._reconstruct_batchers[loop] = batcher
         return batcher
 
+    def _chunk_cache(self):
+        """Per-event-loop content-addressed read cache, or None when the
+        ``cache_bytes`` tunable leaves it off (the default)."""
+        if self.tunables.cache_bytes <= 0:
+            return None
+        loop = asyncio.get_running_loop()
+        cache = self._chunk_caches.get(loop)
+        if cache is None:
+            from chunky_bits_tpu_torch.file.chunk_cache import ChunkCache
+
+            cache = ChunkCache(self.tunables.cache_bytes)
+            self._chunk_caches[loop] = cache
+        return cache
+
     async def get_file_ref(self, path: str) -> FileReference:
-        # no parsed-reference cache: it comes with the read cache
-        # (ROADMAP Queue A item 5)
-        return FileReference.from_obj(await self.metadata.read(path))
+        cache_on = self.tunables.cache_bytes > 0
+        if cache_on:
+            ref = self._file_refs.get(path)
+            if ref is not None:
+                self._file_refs.move_to_end(path)
+                return ref
+        gen = self._file_ref_gen
+        ref = FileReference.from_obj(await self.metadata.read(path))
+        # insert only if no write invalidated the cache while this read
+        # was in flight, or a stale reference would stay cached
+        if cache_on and gen == self._file_ref_gen:
+            self._file_refs[path] = ref
+            while len(self._file_refs) > self.FILE_REF_CACHE_ENTRIES:
+                self._file_refs.popitem(last=False)
+        return ref
 
     def file_read_builder(self, file_ref: FileReference) -> FileReadBuilder:
         """The serve-path read builder: cluster context, backend, the
-        per-loop shared reconstruct batcher and the cluster's host
-        pipeline.  ``read_file`` and the CLI come through here so every
-        read shares the same coalescing."""
+        per-loop shared reconstruct batcher, the cluster's host pipeline
+        and (when enabled) the chunk cache.  The gateway, ``read_file``
+        and the CLI come through here so every read shares the same
+        coalescing and cache."""
         return (
             file_ref.read_builder(self.tunables.location_context())
             .with_backend(self.tunables.backend)
             .with_batcher(self._reconstruct_batcher())
+            .with_cache(self._chunk_cache())
             .with_pipeline(self.host_pipeline())
         )
 

@@ -10,10 +10,10 @@ YAML naming the JAX package's backends round-trips; the names resolve in
 ``ops.backend.canonical_backend_name``.
 
 The knobs of modules that are not ported yet are refused, never dropped:
-a ``slo:`` or ``qos:`` mapping, ``cache_bytes``, ``trace_slow_ms`` or
-``slo_eval_s`` above 0 (ROADMAP Queue A item 5) and
-``scrub_bytes_per_sec`` above 0 (item 6) raise ``SerdeError``, as does
-``$CHUNKY_BITS_TORCH_CACHE_BYTES`` above 0.
+a ``slo:`` or ``qos:`` mapping or ``slo_eval_s`` above 0 (ROADMAP Queue
+A item 5b) and ``scrub_bytes_per_sec`` above 0 (item 6) raise
+``SerdeError``.  The gateway's deployment knobs (worker count, sendfile)
+are environment-only, as in the JAX package.
 
 The environment accessors are stand-alone copies of the JAX package's,
 plus ``virtual_devices`` (the port's stand-in for the forced host device
@@ -60,9 +60,25 @@ DISPATCH_DEPTH_ENV = ENV_PREFIX + "DISPATCH_DEPTH"
 #: JAX package's forced host device count (``utils/virtualmesh.py``)
 VIRTUAL_DEVICES_ENV = ENV_PREFIX + "VIRTUAL_DEVICES"
 
-#: the JAX package's read-cache budget; the cache is not ported, so a
-#: value above 0 raises
+#: per-loop chunk read-cache budget in bytes (file/chunk_cache.py);
+#: 0/unset = no cache.  YAML ``cache_bytes`` wins
 CACHE_BYTES_ENV = ENV_PREFIX + "CACHE_BYTES"
+
+#: slow-request tracing threshold in milliseconds (obs/tracing.py, the
+#: gateway's ``/debug/traces``); 0/unset = tracing off.  YAML
+#: ``trace_slow_ms`` wins
+TRACE_SLOW_MS_ENV = ENV_PREFIX + "TRACE_SLOW_MS"
+
+#: gateway worker-process count (gateway/workers.py): N > 1 pre-forks N
+#: SO_REUSEPORT serving processes, each with its own loop, cluster,
+#: CUDA context and chunk cache.  A deployment knob, env/CLI only; the
+#: ``http-gateway --workers`` flag wins
+GATEWAY_WORKERS_ENV = ENV_PREFIX + "GATEWAY_WORKERS"
+
+#: flag, default on: the gateway streams a range inside one verified
+#: local data chunk with ``loop.sendfile``; a falsy value sends every GET
+#: through reassembly
+GATEWAY_SENDFILE_ENV = ENV_PREFIX + "GATEWAY_SENDFILE"
 
 #: hedged-read delay floor in milliseconds (cluster/health.py); 0/unset
 #: = hedging off.  YAML ``hedge_ms`` wins
@@ -221,9 +237,32 @@ def repair_block_bytes(*, default: int = 0) -> int:
 
 
 def cache_bytes(*, default: int = 0) -> int:
-    """``$CHUNKY_BITS_TORCH_CACHE_BYTES``; malformed or negative reads as
-    off.  ``Tunables`` refuses a value above 0."""
+    """Env default of the ``cache_bytes`` tunable (0 = no read cache);
+    malformed or negative reads as off."""
     return _lenient(CACHE_BYTES_ENV, int, default, lambda v: v >= 0)
+
+
+def trace_slow_ms(*, default: float = 0.0) -> float:
+    """Env default of the ``trace_slow_ms`` tunable (0 = tracing off);
+    malformed or negative reads as off."""
+    return _lenient(TRACE_SLOW_MS_ENV, float, default, lambda v: v > 0)
+
+
+def gateway_workers(*, default: int = 1) -> int:
+    """Gateway worker-process count from
+    ``$CHUNKY_BITS_TORCH_GATEWAY_WORKERS``; unset, malformed or
+    non-positive reads as ``default`` (1 = one serving process).  Read at
+    serve start; the CLI's ``--workers`` wins."""
+    return _lenient(GATEWAY_WORKERS_ENV, int, default, lambda v: v > 0)
+
+
+def gateway_sendfile(*, default: bool = True) -> bool:
+    """True when the gateway may stream verified local chunks with
+    ``loop.sendfile``; a falsy ``$CHUNKY_BITS_TORCH_GATEWAY_SENDFILE``
+    forces reassembly (storage shared with outside writers that
+    truncate, the same caveat as ``$CHUNKY_BITS_TORCH_NO_MMAP``).  Read
+    at app build."""
+    return env_flag(GATEWAY_SENDFILE_ENV, default=default)
 
 
 #: the tunables parsed as numbers: (name, type, default factory); YAML
@@ -233,15 +272,16 @@ _NUMERIC = (
     ("hedge_ms", float, hedge_ms),
     ("read_retries", int, read_retries),
     ("repair_block_bytes", int, repair_block_bytes),
+    ("cache_bytes", int, cache_bytes),
+    ("trace_slow_ms", float, trace_slow_ms),
 )
 
 #: the JAX package's tunables whose modules the port has not yet, and the
 #: ROADMAP Queue A item that brings each: refused when set
-_NOT_PORTED = (("slo", "the SLO engine", 5), ("qos", "multi-tenant QoS", 5),
-               ("cache_bytes", "the chunk cache", 5),
-               ("trace_slow_ms", "request tracing", 5),
-               ("slo_eval_s", "the SLO engine", 5),
-               ("scrub_bytes_per_sec", "the scrub daemon", 6))
+_NOT_PORTED = (("slo", "the SLO engine", "5b"),
+               ("qos", "multi-tenant QoS", "5b"),
+               ("slo_eval_s", "the SLO engine", "5b"),
+               ("scrub_bytes_per_sec", "the scrub daemon", "6"))
 
 
 @dataclass
@@ -262,6 +302,10 @@ class Tunables:
     read_retries: int = field(default_factory=read_retries)
     #: block-digest tree granularity (file/chunk.py); 0 = off
     repair_block_bytes: int = field(default_factory=repair_block_bytes)
+    #: per-loop chunk read-cache budget in bytes; 0 = no cache
+    cache_bytes: int = field(default_factory=cache_bytes)
+    #: slow-request tracing threshold in ms (the gateway); 0 = off
+    trace_slow_ms: float = field(default_factory=trace_slow_ms)
 
     def is_device_backend(self) -> bool:
         """True when the erasure plane runs on the card (``cuda``,
@@ -279,12 +323,9 @@ class Tunables:
 
         if self.on_conflict not in (IGNORE, OVERWRITE):
             raise SerdeError(f"invalid on_conflict {self.on_conflict!r}")
-        if cache_bytes() > 0:
-            raise SerdeError(
-                f"${CACHE_BYTES_ENV}: the chunk cache is not yet ported "
-                f"(ROADMAP Queue A item 5)")
         self._location_context = LocationContext(
-            on_conflict=self.on_conflict, read_retries=self.read_retries)
+            on_conflict=self.on_conflict, https_only=self.https_only,
+            user_agent=self.user_agent, read_retries=self.read_retries)
 
     @classmethod
     def from_obj(cls, obj: object) -> "Tunables":

@@ -1,8 +1,12 @@
 """File codec and I/O substrate (the reference's src/file/ layer): the
-object writer and reader, file references, parts, chunks, locations and
-destinations."""
+object writer and reader, file references, parts, chunks, the read
+cache, locations and destinations."""
 
 from chunky_bits_tpu_torch.file.chunk import BlockDigests, Chunk  # noqa: F401
+from chunky_bits_tpu_torch.file.chunk_cache import (  # noqa: F401
+    CacheStats,
+    ChunkCache,
+)
 from chunky_bits_tpu_torch.file.collection_destination import (  # noqa: F401
     CollectionDestination,
     LocationsDestination,

@@ -44,6 +44,7 @@ if TYPE_CHECKING:  # typing-only: none of these is needed at import time
     from chunky_bits_tpu_torch.file.collection_destination import (
         CollectionDestination,
     )
+    from chunky_bits_tpu_torch.file.chunk_cache import ChunkCache
     from chunky_bits_tpu_torch.ops.batching import ReconstructBatcher
     from chunky_bits_tpu_torch.parallel.host_pipeline import HostPipeline
 
@@ -232,16 +233,19 @@ class FilePart:
                    coder: Optional[ErasureCoder] = None,
                    backend: Optional[str] = None,
                    batcher: Optional[ReconstructBatcher] = None,
+                   cache: Optional[ChunkCache] = None,
                    pipeline: Optional[HostPipeline] = None) -> bytes:
         """``read_buffers`` joined into one bytes object (padding
         included; the file reader trims)."""
         return b"".join(
-            await self.read_buffers(cx, coder, backend, batcher, pipeline))
+            await self.read_buffers(cx, coder, backend, batcher, cache,
+                                    pipeline))
 
     async def read_buffers(self, cx: Optional[LocationContext] = None,
                            coder: Optional[ErasureCoder] = None,
                            backend: Optional[str] = None,
                            batcher: Optional[ReconstructBatcher] = None,
+                           cache: Optional[ChunkCache] = None,
                            pipeline: Optional[HostPipeline] = None) -> list:
         """Scattered read: d workers randomly grab chunks from the shared
         d+p pool, falling through each chunk's locations in order;
@@ -253,6 +257,12 @@ class FilePart:
         part's reconstruction with other parts in flight into one device
         dispatch.
 
+        ``cache`` (a file.chunk_cache.ChunkCache) short-circuits fetch
+        and verify for chunks whose verified bytes it holds: hits fill
+        their slots before any worker starts, misses fetch through the
+        cache's single flight (concurrent readers of one digest share
+        one fetch), and only whole verified buffers are inserted.
+
         In a cluster (``cx.health`` set, cluster/health.py) every fetch
         reports to the location-health scoreboard, and with the
         ``hedge_ms`` tunable above 0 the read is tail-tolerant: a chunk's
@@ -260,8 +270,7 @@ class FilePart:
         adaptive hedge delay (``fetch_hedged``), and a straggling chunk
         is beaten by fetching one more and reconstructing
         (``straggler_race``).  Transient HTTP errors get ``read_retries``
-        retries per location.  Not ported yet: the read cache
-        (``file/chunk_cache.py``)."""
+        retries per location."""
         self.require_known_code()
         cx = cx or default_context()
         pipe = _pipe(pipeline)
@@ -269,6 +278,10 @@ class FilePart:
             # read-side verification runs on the host pipeline, so its
             # per-stage counters belong in the report
             cx.profiler.attach_pipeline(pipe)
+        if cache is not None and cx.profiler is not None:
+            # a cache hit logs no read entry, so the profiler shows the
+            # cache's own counters instead
+            cx.profiler.attach_cache(cache)
         # the cluster's scoreboard, or None outside a cluster; with
         # hedging off the locations are walked in metadata order
         health = cx.health
@@ -279,7 +292,15 @@ class FilePart:
         # slot payloads are bytes, zero-copy memoryviews or rebuilt array
         # views (the consumers take buffers)
         slots: list = [None] * (d + p)
-        pool: list[tuple[int, Chunk]] = list(enumerate(self.all_chunks()))
+        pool: list[tuple[int, Chunk]] = []
+        for index, chunk in enumerate(self.all_chunks()):
+            buf = (cache.get(chunk.cache_key())
+                   if cache is not None and chunk.cache_key() is not None
+                   else None)
+            if buf is not None:
+                slots[index] = buf
+            else:
+                pool.append((index, chunk))
         pool_lock = asyncio.Lock()
 
         async def read_verified(chunk: Chunk, location: Location
@@ -451,18 +472,24 @@ class FilePart:
                     if not pool:
                         return None
                     index, chunk = pool.pop(random.randrange(len(pool)))
-                data = await fetch_chunk(chunk)
+                key = chunk.cache_key() if cache is not None else None
+                if key is not None:
+                    data = await cache.get_or_fetch(
+                        key, lambda c=chunk: fetch_chunk(c))
+                else:
+                    data = await fetch_chunk(chunk)
                 if data is not None:
                     return (index, data)
 
-        async def straggler_race() -> None:
+        async def straggler_race(needed: int) -> None:
             """The d-of-d+p degraded-read race: run the d chunk workers,
             and whenever twice the hedge delay passes with workers still
             out (budget allowing), draw one more chunk from the pool, so
             a straggling data chunk can be beaten by fetch+reconstruct.
             Once d slots are filled the stragglers are cancelled and
             awaited; the reconstruction below fills the gaps."""
-            tasks = {asyncio.ensure_future(worker()) for _ in range(d)}
+            tasks = {asyncio.ensure_future(worker())
+                     for _ in range(needed)}
             extras: set = set()  # hedge-spawned workers, for counters
             try:
                 hedge_more = True
@@ -502,11 +529,14 @@ class FilePart:
                 if tasks:
                     await asyncio.gather(*tasks, return_exceptions=True)
 
-        if hedging:
-            await straggler_race()
+        # cache hits already filled some slots: only the shortfall needs
+        # workers (a fully hot part starts none)
+        needed = max(d - sum(1 for s in slots if s is not None), 0)
+        if hedging and needed > 0:
+            await straggler_race(needed)
         else:
             for item in await asyncio.gather(*[worker()
-                                               for _ in range(d)]):
+                                               for _ in range(needed)]):
                 if item is not None:
                     slots[item[0]] = item[1]
         if not all(slots[i] is not None for i in range(d)):
@@ -515,6 +545,7 @@ class FilePart:
                 raise NotEnoughChunks(
                     f"only {present} of {d}+{p} chunks readable"
                 )
+            rebuilt_idx = [i for i in range(d) if slots[i] is None]
             arrays: list[Optional[np.ndarray]] = [
                 np.frombuffer(s, dtype=np.uint8) if s is not None else None
                 for s in slots
@@ -529,6 +560,13 @@ class FilePart:
             slots = [memoryview(np.ascontiguousarray(a))
                      if isinstance(a, np.ndarray) else a
                      for a in arrays]
+            if cache is not None:
+                # rebuilt rows were never hash-verified, so they enter
+                # through the verify-then-insert gate; a repeated
+                # degraded read then hits instead of decoding again
+                for i in rebuilt_idx:
+                    await cache.insert_verified(self.data[i].hash,
+                                                slots[i])
         return [slots[i] for i in range(d)]  # type: ignore[misc]
 
     # ---- encode (pure compute half; no I/O) ----

@@ -1,19 +1,23 @@
 """Uniform storage addressing (the port of
 ``chunky_bits_tpu/file/location.py``).
 
-As the reference's ``Location``, an address is a plain string with an
-optional ``(start,len)`` range prefix.  The port serves the ``path``
-scheme: a local filesystem path (or ``file://`` URL), with the verbs
-read (ranges, zero-extension), a streaming reader, a zero-copy page-cache
-view, write and streaming write (conflict policy, atomic publication),
-subfile write (content-addressed children), delete, exists and len.
-Filesystem calls hop to threads.  Every read and write also reports to
-the context's location-health scoreboard when a cluster set one
+As the reference's ``Location`` (src/file/location.rs:61-68), an address
+is ``Local{path, range}`` or ``Http{url, range}``, a plain string with an
+optional ``(start,len)`` range prefix.  The verbs: read (ranges,
+zero-extension), a streaming reader, a zero-copy page-cache view (local
+only), write and streaming write (conflict policy; local writes publish
+atomically), subfile write (content-addressed children), delete, exists
+and len.  Filesystem calls hop to threads; HTTP goes through one aiohttp
+session per event loop (``LocationContext.http_session``), honouring
+``https_only`` (plain http and redirects refused) and ``user_agent``.
+The reference's HTTP ``file_len`` is ``todo!()`` (location.rs:394); here
+it reads Content-Length from a HEAD.  Every read and write also reports
+to the context's location-health scoreboard when a cluster set one
 (cluster/health.py).
 
 Not yet ported, and refused by ``Location.parse`` with a
-``LocationParseError`` that says so: ``http(s)://`` (needs aiohttp),
-``slab:`` (the packed slab store) and ``sim:`` (the simulator's fabric).
+``LocationParseError`` that says so: ``slab:`` (the packed slab store)
+and ``sim:`` (the simulator's fabric).
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ import os
 import re
 from dataclasses import dataclass, field, replace
 from typing import Optional
-from urllib.parse import urlsplit
+from urllib.parse import quote, urlsplit, urlunsplit
 
 from chunky_bits_tpu_torch.errors import (
+    HttpStatusError,
     LocationError,
     LocationParseError,
     ShardError,
@@ -44,8 +49,7 @@ IGNORE = "ignore"
 
 #: schemes of the JAX package that the port does not serve yet, with the
 #: ROADMAP Queue A item that brings each
-_NOT_PORTED = (("http://", "http", 5), ("https://", "http", 5),
-               ("slab:", "slab", 6), ("sim:", "sim", 8))
+_NOT_PORTED = (("slab:", "slab", 6), ("sim:", "sim", 8))
 
 
 @dataclass(frozen=True)
@@ -91,8 +95,9 @@ class Range:
 
 
 class LocationContext:
-    """Per-operation context: conflict policy, an optional profiler and an
-    optional location-health scoreboard (src/file/location.rs:447-510).
+    """Per-operation context: conflict policy, the HTTP client settings
+    and sessions, an optional profiler and an optional location-health
+    scoreboard (src/file/location.rs:447-510).
 
     ``health`` (a ``cluster.health.HealthScoreboard``, duck-typed to keep
     ``file/`` free of the cluster package) receives a completion record
@@ -104,22 +109,90 @@ class LocationContext:
 
     def __init__(self, on_conflict: str = OVERWRITE,
                  profiler: Optional[Profiler] = None,
+                 https_only: bool = False,
+                 user_agent: Optional[str] = None,
                  read_retries: int = 1):
         if on_conflict not in (OVERWRITE, IGNORE):
             raise ValueError(f"invalid on_conflict {on_conflict!r}")
         self.on_conflict = on_conflict
         self.profiler = profiler
+        self.https_only = https_only
+        self.user_agent = user_agent
         self.read_retries = max(int(read_retries), 0)
         self.health = None  # set by Cluster.__init__ (one per cluster)
+        self._sessions: dict[int, tuple] = {}
 
     def but_with(self, *, on_conflict: Optional[str] = None,
                  profiler: Optional[Profiler] = None) -> "LocationContext":
         cx = LocationContext(
             on_conflict=on_conflict or self.on_conflict,
             profiler=profiler if profiler is not None else self.profiler,
+            https_only=self.https_only, user_agent=self.user_agent,
             read_retries=self.read_retries)
         cx.health = self.health  # one scoreboard per cluster
+        cx._sessions = self._sessions  # share the connection pools
         return cx
+
+    def http_session(self):
+        """The aiohttp session of the running loop (loop-bound, cached).
+
+        Entries hold a weakref of their loop, since the ``id()`` of a
+        dead loop can be reused by a new one.  Each new session also
+        primes an async generator whose finalizer closes it, so
+        ``asyncio.run``'s ``shutdown_asyncgens`` closes the session while
+        its loop is still alive even when nobody calls :meth:`aclose`."""
+        import weakref
+
+        import aiohttp
+
+        loop = asyncio.get_running_loop()
+        entry = self._sessions.get(id(loop))
+        if entry is not None:
+            loop_ref, sess = entry[0], entry[1]
+            if loop_ref() is loop and not sess.closed:
+                return sess
+            del self._sessions[id(loop)]  # a dead or reused loop's
+        headers = {}
+        if self.user_agent:
+            headers["User-Agent"] = self.user_agent
+        sess = aiohttp.ClientSession(headers=headers)
+
+        async def _closer():
+            try:
+                yield
+            finally:
+                if not sess.closed:
+                    await sess.close()
+
+        gen = _closer()
+        # sweep the entries of dead loops (they cannot be closed anymore)
+        for key, (ref, _s, _g, _p) in list(self._sessions.items()):
+            if ref() is None:
+                del self._sessions[key]
+        # prime the generator so the loop finalizes it at shutdown; the
+        # entry holds the strong reference (the loop's registry is weak)
+        primer = asyncio.ensure_future(gen.__anext__())
+        self._sessions[id(loop)] = (weakref.ref(loop), sess, gen, primer)
+        return sess
+
+    async def aclose(self) -> None:
+        """Close the running loop's HTTP session, if it has one."""
+        loop = asyncio.get_running_loop()
+        entry = self._sessions.pop(id(loop), None)
+        if entry is None:
+            return
+        _ref, sess, gen, primer = entry
+        if not primer.done():
+            primer.cancel()
+        # retrieve the primer's outcome either way, so it never surfaces
+        # as a task exception nobody retrieved
+        try:
+            await primer
+        except (asyncio.CancelledError, StopAsyncIteration):
+            pass
+        await gen.aclose()  # runs the closer's finally
+        if not sess.closed:
+            await sess.close()
 
 
 _DEFAULT_CONTEXT = LocationContext()
@@ -216,6 +289,38 @@ async def _atomic_publish_stream(reader, target: str) -> int:
         target, lambda path: aio.copy_reader_to_file(reader, path))
 
 
+class _HttpBodyReader:
+    """An aiohttp response body as an AsyncByteReader; the response is
+    released at EOF or on close()."""
+
+    def __init__(self, resp):
+        self._resp = resp
+
+    async def read(self, n: int = -1) -> bytes:
+        if self._resp is None:
+            return b""
+        try:
+            if n < 0:
+                data = await self._resp.content.read()
+            else:
+                data = await self._resp.content.read(n)
+        except Exception as err:
+            # a failure mid-body is a LocationError, so the read
+            # fall-through moves on to the next replica
+            self._resp.close()
+            self._resp = None
+            raise LocationError(f"http body read failed: {err}") from err
+        if not data:
+            self._resp.release()
+            self._resp = None
+        return data
+
+    async def close(self) -> None:
+        if self._resp is not None:
+            self._resp.release()
+            self._resp = None
+
+
 class _ProfiledReader:
     """Counts streamed bytes and logs exactly one profiler entry when the
     stream ends: EOF, error, or early close."""
@@ -256,8 +361,8 @@ class _ProfiledReader:
 class Location:
     """A storage address; value semantics, string serde."""
 
-    kind: str  # "local": the one scheme ported so far
-    target: str  # filesystem path
+    kind: str  # "local" | "http"
+    target: str  # filesystem path or full URL
     range: Range = field(default_factory=Range)
 
     # ---- construction / parsing ----
@@ -270,6 +375,10 @@ class Location:
                 raise LocationParseError(
                     f"{scheme} locations are not yet ported (ROADMAP "
                     f"Queue A item {item}): {rest!r}")
+        if rest.startswith("http://") or rest.startswith("https://"):
+            if not urlsplit(rest).netloc:
+                raise LocationParseError(f"invalid http url: {rest!r}")
+            return Location("http", rest, rng)
         if rest.startswith("file://"):
             path = urlsplit(rest).path
             if not path.startswith("/"):
@@ -285,10 +394,19 @@ class Location:
     def local(path: str, rng: Optional[Range] = None) -> "Location":
         return Location("local", str(path), rng or Range())
 
+    @staticmethod
+    def http(url: str, rng: Optional[Range] = None) -> "Location":
+        if not (url.startswith("http://") or url.startswith("https://")):
+            raise LocationParseError(f"not an http url: {url!r}")
+        return Location("http", url, rng or Range())
+
     def __str__(self) -> str:
         if self.range.is_specified():
             return f"{self.range}{self.target}"
         return self.target
+
+    def is_http(self) -> bool:
+        return self.kind == "http"
 
     def is_local(self) -> bool:
         return self.kind == "local"
@@ -299,16 +417,63 @@ class Location:
     # ---- hierarchy (src/file/location.rs:407-436) ----
 
     def child(self, name: str) -> "Location":
-        return Location(self.kind, os.path.join(self.target, name))
+        if not self.is_http():
+            return Location(self.kind, os.path.join(self.target, name))
+        parts = urlsplit(self.target)
+        path = parts.path.rstrip("/") + "/" + quote(name, safe="")
+        return Location("http", urlunsplit(parts._replace(path=path)))
 
     def is_child_of(self, other: "Location") -> bool:
         if self.range.is_specified() or self.kind != other.kind:
             return False
-        parent = os.path.dirname(self.target)
-        return parent == other.target.rstrip("/") or parent == other.target
+        if not self.is_http():
+            parent = os.path.dirname(self.target)
+            return parent == other.target.rstrip("/") \
+                or parent == other.target
+        left, right = urlsplit(self.target), urlsplit(other.target)
+        if (left.scheme, left.netloc) != (right.scheme, right.netloc):
+            return False
+        parent = left.path.rsplit("/", 1)[0]
+        return parent == right.path.rstrip("/") or parent == right.path
 
     def is_parent_of(self, other: "Location") -> bool:
         return other.is_child_of(self)
+
+    # ---- https_only (src/cluster/tunables.rs:25-32) ----
+
+    def _check_scheme(self, cx: LocationContext) -> None:
+        """Under ``https_only`` every network verb refuses a plain-http
+        target, as the reference's https-only client does."""
+        if cx.https_only and self.target.startswith("http://"):
+            raise LocationError(
+                f"https_only is set: refusing plain-http location "
+                f"{self.target}")
+
+    def _redirect_kwargs(self, cx: LocationContext) -> dict:
+        """Under ``https_only`` redirects are not followed: a replayed
+        PUT body could otherwise travel a plain-http hop."""
+        return {"allow_redirects": False} if cx.https_only else {}
+
+    def _check_redirect(self, cx: LocationContext, resp) -> None:
+        """Refuse a 3xx answer under ``https_only`` (without it aiohttp
+        has already followed the redirect)."""
+        if cx.https_only and 300 <= resp.status < 400:
+            resp.release()
+            raise LocationError(
+                f"https_only is set: refusing redirect ({resp.status}) "
+                f"from {self.target}")
+
+    def _check_response_hops(self, cx: LocationContext, resp) -> None:
+        """For a GET, before its body is read: refuse a response whose
+        redirect hops or final URL travelled plain http."""
+        if not cx.https_only:
+            return
+        for r in (*resp.history, resp):
+            if r.url.scheme == "http":
+                resp.release()
+                raise LocationError(
+                    f"https_only is set: response for {self.target} "
+                    f"travelled plain http via {r.url}")
 
     # ---- read path ----
 
@@ -320,7 +485,7 @@ class Location:
         cx = cx or default_context()
         start = _clock.monotonic()
         try:
-            base = await self._open_reader()
+            base = await self._open_reader(cx)
         except LocationError as err:
             # a failed open: one health sample and one profiler entry
             if cx.health is not None:
@@ -336,8 +501,11 @@ class Location:
             return base
         return _ProfiledReader(base, cx.profiler, self, start)
 
-    async def _open_reader(self) -> aio.AsyncByteReader:
+    async def _open_reader(self, cx: LocationContext
+                           ) -> aio.AsyncByteReader:
         rng = self.range
+        if self.is_http():
+            return await self._open_http_reader(cx)
 
         def _open_local():
             f = open(self.target, "rb")
@@ -360,6 +528,37 @@ class Location:
             return aio.ZeroExtendReader(base, rng.length)
         return aio.TakeReader(base, rng.length)
 
+    async def _open_http_reader(self, cx: LocationContext
+                                ) -> aio.AsyncByteReader:
+        """A ranged GET: 206 wanted for a range, 200 for the whole."""
+        rng = self.range
+        self._check_scheme(cx)
+        headers = {}
+        if rng.is_specified():
+            if rng.length is not None:
+                headers["Range"] = \
+                    f"bytes={rng.start}-{rng.start + rng.length - 1}"
+            else:
+                headers["Range"] = f"bytes={rng.start}-"
+        sess = cx.http_session()
+        try:
+            resp = await sess.get(self.target, headers=headers,
+                                  **self._redirect_kwargs(cx))
+        except Exception as err:
+            raise LocationError(f"http get failed: {err}") from err
+        self._check_redirect(cx, resp)
+        self._check_response_hops(cx, resp)
+        want = 206 if rng.is_specified() else 200
+        if resp.status != want:
+            resp.release()
+            raise HttpStatusError(resp.status, self.target)
+        base = _HttpBodyReader(resp)
+        if rng.length is None:
+            return base
+        if rng.extend_zeros:
+            return aio.ZeroExtendReader(base, rng.length)
+        return aio.TakeReader(base, rng.length)
+
     async def read(self, cx: Optional[LocationContext] = None) -> bytes:
         """Read the full (ranged) content; profiler-hooked
         (src/file/location.rs:95-113)."""
@@ -368,7 +567,7 @@ class Location:
         if cx.health is not None:
             cx.health.begin(self)
         try:
-            reader = await self._open_reader()
+            reader = await self._open_reader(cx)
             try:
                 chunks = []
                 while True:
@@ -403,7 +602,8 @@ class Location:
     async def read_view(self, cx: Optional[LocationContext] = None
                         ) -> Optional[memoryview]:
         """Zero-copy page-cache view of the (optionally ranged) file, or
-        ``None`` where the fast path does not apply: an active profiler
+        ``None`` where the fast path does not apply: a non-local target,
+        an active profiler
         (which must see the generic read), ``$CHUNKY_BITS_TORCH_NO_MMAP``,
         a range reaching past the end (the generic path owns short-read
         and zero-extension semantics), or an unmappable file.
@@ -423,7 +623,8 @@ class Location:
         worker thread runs it there and fuses its own work (hash
         verification) into the same hop."""
         cx = cx or default_context()
-        if cx.profiler is not None or aio.mmap_opted_out():
+        if (not self.is_local() or cx.profiler is not None
+                or aio.mmap_opted_out()):
             return None
         rng = self.range
         health = cx.health  # thread-safe scoreboard; _map runs off-loop
@@ -457,7 +658,8 @@ class Location:
     async def write(self, data: bytes,
                     cx: Optional[LocationContext] = None) -> None:
         """Whole-buffer write with the conflict policy, published
-        atomically; profiler-hooked (src/file/location.rs:185-244)."""
+        atomically on a local target; profiler-hooked
+        (src/file/location.rs:185-244)."""
         cx = cx or default_context()
         if self.range.is_specified():
             raise WriteToRangeError()
@@ -465,11 +667,15 @@ class Location:
         if cx.health is not None:
             cx.health.begin(self)
         try:
-            if not (cx.on_conflict == IGNORE and await self.file_exists(cx)):
+            if cx.on_conflict == IGNORE and await self.file_exists(cx):
+                pass
+            elif self.is_local():
                 try:
                     await _atomic_publish(self.target, data)
                 except OSError as err:
                     raise LocationError(str(err)) from err
+            else:
+                await self._http_send("put", cx, data=data)
         except LocationError as err:
             if cx.health is not None:
                 cx.health.finish(self, False, _clock.monotonic() - start)
@@ -487,7 +693,8 @@ class Location:
 
     async def write_from_reader(self, reader: aio.AsyncByteReader,
                                 cx: Optional[LocationContext] = None) -> int:
-        """Streaming write of a reader's bytes, published atomically
+        """Streaming write of a reader's bytes: published atomically on a
+        local target, a chunked PUT of 1 MiB pieces to an HTTP one
         (src/file/location.rs:246-309); returns the bytes written.
         Profiler- and health-hooked like ``write``."""
         cx = cx or default_context()
@@ -502,10 +709,14 @@ class Location:
         if cx.health is not None:
             cx.health.begin(self)
         try:
-            try:
-                total = await _atomic_publish_stream(counted, self.target)
-            except OSError as err:
-                raise LocationError(str(err)) from err
+            if self.is_local():
+                try:
+                    total = await _atomic_publish_stream(counted,
+                                                         self.target)
+                except OSError as err:
+                    raise LocationError(str(err)) from err
+            else:
+                total = await self._http_put_stream(counted, cx)
         except LocationError as err:
             if cx.health is not None:
                 cx.health.finish(self, False, _clock.monotonic() - start)
@@ -523,6 +734,40 @@ class Location:
             cx.profiler.log_write(True, None, self, total, start)
         return total
 
+    async def _http_put_stream(self, reader: aio.AsyncByteReader,
+                               cx: LocationContext) -> int:
+        total = 0
+
+        async def gen():
+            nonlocal total
+            while True:
+                data = await reader.read(1 << 20)
+                if not data:
+                    break
+                total += len(data)
+                yield data
+
+        await self._http_send("put", cx, data=gen())
+        return total
+
+    async def _http_send(self, method: str, cx: LocationContext,
+                         **kwargs):
+        """One PUT, DELETE or HEAD; a status of 400 and above raises
+        ``HttpStatusError`` (the transient ones are retried by the
+        callers), except for HEAD, whose status the caller reads."""
+        self._check_scheme(cx)
+        sess = cx.http_session()
+        try:
+            resp = await getattr(sess, method)(
+                self.target, **kwargs, **self._redirect_kwargs(cx))
+            resp.release()
+        except Exception as err:
+            raise LocationError(f"http {method} failed: {err}") from err
+        self._check_redirect(cx, resp)
+        if method != "head" and resp.status >= 400:
+            raise HttpStatusError(resp.status, self.target)
+        return resp
+
     async def write_subfile(self, name: str, data: bytes,
                             cx: Optional[LocationContext] = None
                             ) -> "Location":
@@ -538,15 +783,29 @@ class Location:
     # ---- management ----
 
     async def delete(self, cx: Optional[LocationContext] = None) -> None:
+        if self.is_http():
+            await self._http_send("delete", cx or default_context())
+            return
         try:
             await asyncio.to_thread(_fsio.unlink, self.target)
         except OSError as err:
             raise LocationError(str(err)) from err
 
     async def file_exists(self, cx: Optional[LocationContext] = None) -> bool:
+        if self.is_http():
+            resp = await self._http_send("head", cx or default_context())
+            return resp.status < 400
         return await asyncio.to_thread(os.path.exists, self.target)
 
     async def file_len(self, cx: Optional[LocationContext] = None) -> int:
+        if self.is_http():
+            resp = await self._http_send("head", cx or default_context())
+            if resp.status >= 400:
+                raise HttpStatusError(resp.status, self.target)
+            length = resp.headers.get("Content-Length")
+            if length is None:
+                raise LocationError(f"no Content-Length from {self.target}")
+            return int(length)
         try:
             st = await asyncio.to_thread(os.stat, self.target)
         except OSError as err:

@@ -9,9 +9,11 @@ counted (in the report's ``Dropped<...>`` and in the metrics registry),
 and every ``log_request``/``log_read``/``log_write`` also records into
 the metrics registry and, when a trace is active, onto the trace.  The
 report also carries the counters of the host pipelines and the table of
-the location-health scoreboards attached to it.  Not ported yet: the
-attach points of the read cache, scrub, SLO and QoS sources, which come
-with their modules.
+the location-health scoreboards attached to it, and of the read caches
+(``file/chunk_cache.py``).  Scrub daemons attach the same way; the port
+has none yet (ROADMAP Queue A item 6), so the gateway attaches none and
+its ``/scrub/status`` answers ``enabled: false``.  Not ported yet: the
+SLO and QoS attach points, which come with their modules (item 5b).
 """
 
 from __future__ import annotations
@@ -161,8 +163,10 @@ class Profiler:
         self._entries: deque[ResultLog] = deque(
             maxlen=max_entries or self.MAX_ENTRIES)
         self._lock = threading.Lock()
-        self._pipelines: list = []  # host pipelines whose counters we surface
+        self._caches: list = []  # read caches whose counters we surface
+        self._pipelines: list = []  # host pipelines ditto
         self._healths: list = []  # location-health scoreboards ditto
+        self._scrubs: list = []  # scrub daemons ditto
         # per-location failure notes from the read fall-through
         # (fetch_chunk): which location failed / was corrupt and why —
         # the diagnosable trail the anonymous `except LocationError:
@@ -193,6 +197,20 @@ class Profiler:
         with self._lock:
             return dict(self._dropped)
 
+    def attach_cache(self, cache) -> None:
+        """Register a chunk cache so its hit/miss/eviction/singleflight
+        counters ride along in the report: cache hits never reach the
+        read hooks, so a fully hot read would otherwise profile as no
+        I/O at all."""
+        with self._lock:
+            if all(c is not cache for c in self._caches):
+                self._caches.append(cache)
+
+    def cache_stats(self) -> list:
+        """Snapshot of each attached cache's counters (CacheStats)."""
+        with self._lock:
+            return [c.stats() for c in self._caches]
+
     def attach_pipeline(self, pipeline) -> None:
         """Register a host pipeline (parallel/host_pipeline.py) so its
         per-stage busy/idle/bytes counters ride along in the report —
@@ -220,6 +238,18 @@ class Profiler:
         """Snapshot of each attached scoreboard (HealthStats)."""
         with self._lock:
             return [h.stats() for h in self._healths]
+
+    def attach_scrub(self, scrub) -> None:
+        """Register a scrub daemon so its counters ride along in the
+        report (scrub I/O happens outside any one operation's hooks)."""
+        with self._lock:
+            if all(s is not scrub for s in self._scrubs):
+                self._scrubs.append(scrub)
+
+    def scrub_stats(self) -> list:
+        """Snapshot of each attached scrub daemon."""
+        with self._lock:
+            return [s.stats() for s in self._scrubs]
 
     def log_location_failure(self, location, error: str) -> None:
         """A per-location read failure (unreadable or hash-mismatched)
@@ -308,12 +338,15 @@ class Profiler:
 
 
 class ProfileReport:
-    def __init__(self, entries: list[ResultLog], pipeline_stats: list = (),
+    def __init__(self, entries: list[ResultLog], cache_stats: list = (),
+                 pipeline_stats: list = (), health_stats: list = (),
                  location_failures: list = (), requests: list = (),
-                 dropped: Optional[dict] = None, health_stats: list = ()):
+                 scrub_stats: list = (), dropped: Optional[dict] = None):
         self.entries = entries
+        self.cache_stats = list(cache_stats)
         self.pipeline_stats = list(pipeline_stats)
         self.health_stats = list(health_stats)
+        self.scrub_stats = list(scrub_stats)
         self.location_failures = list(location_failures)
         self.requests = list(requests)
         self.dropped = dict(dropped or {})
@@ -347,9 +380,13 @@ class ProfileReport:
             f"WriteAvg<{ms(self.average_write_duration())}ms> "
             f"Total<{ms(self.total_time())}ms> Total<{self.total_bytes()}B>"
         )
+        for stats in self.cache_stats:
+            base += f" {stats}"
         for stats in self.pipeline_stats:
             base += f" {stats}"
         for stats in self.health_stats:
+            base += f" {stats}"
+        for stats in self.scrub_stats:
             base += f" {stats}"
         if self.requests:
             base += f" {request_stats(self.requests)}"
@@ -375,11 +412,13 @@ class ProfileReporter:
 
     def profile(self) -> ProfileReport:
         return ProfileReport(self._profiler.drain(),
+                             self._profiler.cache_stats(),
                              self._profiler.pipeline_stats(),
+                             self._profiler.health_stats(),
                              self._profiler.drain_location_failures(),
                              self._profiler.drain_requests(),
-                             self._profiler.drop_counts(),
-                             self._profiler.health_stats())
+                             self._profiler.scrub_stats(),
+                             self._profiler.drop_counts())
 
 
 def new_profiler() -> tuple[Profiler, ProfileReporter]:

@@ -15,7 +15,6 @@ from collections import deque
 from dataclasses import dataclass, field, replace
 from typing import AsyncIterator, Optional
 
-from chunky_bits_tpu_torch.errors import FileReadError
 from chunky_bits_tpu_torch.file.file_part import FilePart
 from chunky_bits_tpu_torch.file.file_reference import FileReference
 from chunky_bits_tpu_torch.file.location import (LocationContext,
@@ -37,8 +36,9 @@ class FileReadBuilder:
     #: so concurrent GETs coalesce into one device dispatch); when None
     #: the stream creates — and owns closing — its own
     batcher: Optional[object] = None
-    #: content-addressed read cache (file.chunk_cache.ChunkCache): not yet
-    #: ported, so anything but None raises when the stream starts
+    #: content-addressed read cache (file.chunk_cache.ChunkCache); hits
+    #: skip fetch and verify, and whole verified chunks are what is
+    #: cached even under seek/take (trimming happens here, at the edge)
     cache: Optional[object] = None
     #: host compute executor for read-side hash verification
     #: (parallel/host_pipeline.HostPipeline); None = the process-shared
@@ -104,8 +104,6 @@ class FileReadBuilder:
         any one read the way the cluster's encode batcher does."""
         from chunky_bits_tpu_torch.ops.batching import ReconstructBatcher
 
-        if self.cache is not None:
-            raise FileReadError("the chunk cache is not yet ported")
         batcher = self.batcher
         owns_batcher = batcher is None
         if owns_batcher:
@@ -161,6 +159,7 @@ class FileReadBuilder:
         # only when reconstruction is actually needed
         buffers = await part.read_buffers(self.cx, backend=self.backend,
                                           batcher=batcher,
+                                          cache=self.cache,
                                           pipeline=self.pipeline)
         if not skip:
             return buffers

@@ -171,15 +171,22 @@ async def close_reader(reader) -> None:
 
 class CountingReader:
     """Pass-through reader that counts the bytes consumed (``.total``);
-    the base reader stays the caller's to close."""
+    the base reader stays the caller's to close.  With ``max_bytes`` set,
+    a read that takes the count past it raises ``exc_factory()`` (the
+    gateway's PUT size cap)."""
 
-    def __init__(self, base):
+    def __init__(self, base, max_bytes=None, exc_factory=None):
         self._base = base
+        self._max_bytes = max_bytes
+        self._exc_factory = exc_factory or (
+            lambda: ValueError("byte limit exceeded"))
         self.total = 0
 
     async def read(self, n: int = -1) -> bytes:
         data = await self._base.read(n)
         self.total += len(data)
+        if self._max_bytes is not None and self.total > self._max_bytes:
+            raise self._exc_factory()
         return data
 
 

@@ -248,7 +248,11 @@ def test_cluster_info_and_config_info(tmp_path):
     (("cat", "nonexistent-cluster#x"), "not defined"),
     (("resilver", "/tmp/just-a-file"), "only supported on cluster"),
     (("cp", "-", "slab:/tmp/x"), "slab locations are not yet ported"),
-    (("cp", "-", "http://host/x"), "http locations are not yet ported"),
+    # http destinations are ported (a cp there would dial the host): the
+    # case keeps its id and now checks the sim: refusal
+    pytest.param(("cp", "-", "sim:fabric/n0/x"),
+                 "sim locations are not yet ported",
+                 id="argv4-http locations are not yet ported"),
 ])
 def test_error_paths(cluster_yaml, tmp_path, argv, message):
     argv = [a.format(conf=cluster_yaml) for a in argv]
@@ -256,11 +260,50 @@ def test_error_paths(cluster_yaml, tmp_path, argv, message):
     assert message in err
 
 
-@pytest.mark.parametrize("command", sorted(NOT_PORTED))
+@pytest.mark.parametrize("command",
+                         sorted([*NOT_PORTED, "http-gateway", "stats"]))
 def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
-    _out, err = cli(tmp_path, command, str(cluster_yaml), "--once", rc=1)
-    assert f"{command} is not yet ported (ROADMAP Queue A item " \
-        f"{NOT_PORTED[command]})" in err
+    """``scrub`` and ``meta-compact`` raise, naming their item;
+    ``http-gateway`` and ``stats`` are ported and parse the JAX
+    package's arguments with its defaults."""
+    if command in NOT_PORTED:
+        _out, err = cli(tmp_path, command, str(cluster_yaml), "--once",
+                        rc=1)
+        assert f"{command} is not yet ported (ROADMAP Queue A item " \
+            f"{NOT_PORTED[command]})" in err
+        return
+    from chunky_bits_tpu.cli.main import build_parser as jax_parser
+
+    argv = {"http-gateway": [command, str(cluster_yaml)],
+            "stats": [command, "--json", "127.0.0.1:1"]}[command]
+    ours = vars(build_parser().parse_args(argv))
+    theirs = vars(jax_parser().parse_args(argv))
+    ours.pop("backend", None)
+    theirs.pop("backend", None)
+    assert ours == theirs
+    if command == "stats":
+        # an unreachable gateway fails loudly, not with "not yet ported"
+        _out, err = cli(tmp_path, *argv, rc=1)
+        assert "cannot reach gateway" in err
+
+
+@pytest.mark.parametrize("tunable,item", [
+    ({"slo": {"fast_s": 60}}, "5b"), ({"qos": {"enabled": True}}, "5b"),
+    ({"slo_eval_s": 15}, "5b"), ({"scrub_bytes_per_sec": 1e6}, "6")])
+def test_unported_serving_tunables_still_refuse(tmp_path, tunable, item):
+    """A cluster YAML naming the SLO engine, QoS or the scrub daemon
+    fails every command that loads it, naming the item that brings it;
+    the gateway does not serve such a cluster either."""
+    conf = make_cluster_yaml(tmp_path)
+    spec = yaml.safe_load(conf.read_text())
+    spec["tunables"] = tunable
+    conf.write_text(yaml.safe_dump(spec))
+    key = next(iter(tunable))
+    for argv in (("ls", f"{conf}#."),
+                 ("http-gateway", str(conf), "-l", "127.0.0.1:0")):
+        _out, err = cli(tmp_path, *argv, rc=1)
+        assert f"tunables.{key}: " in err, err
+        assert f"not yet ported (ROADMAP Queue A item {item})" in err, err
 
 
 def test_backend_help_names_the_ports_backends():

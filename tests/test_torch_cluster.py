@@ -121,15 +121,19 @@ def broken_node(tmp_path) -> str:
     ("local", None), ("weights", None), ("test", None), ("git", "http"),
     ("zones", "http"), ("tpu", "slab")])
 def test_cluster_from_yaml_examples(name, refused):
-    """Every example parses, except those naming a scheme the port has
-    not yet, which fail loudly at load."""
+    """Every example parses; ``refused`` names the scheme an example uses
+    beyond ``path``.  ``http`` is ported: those examples load with http
+    destinations.  ``slab`` is not yet, and fails loudly at load."""
     obj = yaml.safe_load((EXAMPLES / f"{name}.yaml").read_text())
-    if refused:
+    if refused == "slab":
         with pytest.raises(LocationParseError,
                            match=f"{refused} locations are not yet ported"):
             Cluster.from_obj(obj)
         return
-    assert Cluster.from_obj(obj).get_profile() is not None
+    cluster = Cluster.from_obj(obj)
+    assert cluster.get_profile() is not None
+    if refused == "http":
+        assert "http" in yaml.safe_dump(cluster.to_obj())
 
 
 def test_zone_map_flattening():
@@ -633,10 +637,14 @@ def test_tpu_example_backend_round_trips(tmp_path):
 @pytest.mark.parametrize("obj,error", [
     ({"slo": {"fast_s": 60}}, "tunables.slo: .*not yet ported .*item 5"),
     ({"qos": {"enabled": True}}, "tunables.qos: .*not yet ported .*item 5"),
-    ({"trace_slow_ms": 250}, "request tracing is not yet ported .*item 5"),
+    # request tracing and the chunk cache are ported: these two cases keep
+    # their ids and now check that a negative or malformed value refuses
+    pytest.param({"trace_slow_ms": -250}, "trace_slow_ms must be >= 0",
+                 id="obj2-request tracing is not yet ported .*item 5"),
     ({"slo_eval_s": 15}, "tunables.slo_eval_s: .*not yet ported .*item 5"),
     ({"scrub_bytes_per_sec": 1e6}, "scrub daemon is not yet ported .*6"),
-    ({"cache_bytes": 1 << 20}, "chunk cache is not yet ported .*item 5"),
+    pytest.param({"cache_bytes": "lots"}, "invalid cache_bytes",
+                 id="obj5-chunk cache is not yet ported .*item 5"),
     ({"on_conflict": "clobber"}, "invalid on_conflict"),
     ({"host_threads": -1}, "host_threads must be >= 0"),
     ({"repair_block_bytes": "big"}, "invalid repair_block_bytes"),
@@ -664,9 +672,17 @@ def test_tunables_round_trip_equals_jax(monkeypatch):
 
 
 def test_cache_bytes_env_is_refused(monkeypatch):
+    """The chunk cache is ported: ``$CHUNKY_BITS_TORCH_CACHE_BYTES`` now
+    supplies the default, and a malformed or negative value is refused
+    (read as off); the JAX package's variable never reaches the port."""
     monkeypatch.setenv("CHUNKY_BITS_TORCH_CACHE_BYTES", "4096")
-    with pytest.raises(SerdeError, match="not yet ported"):
-        Tunables.from_obj({})
+    assert Tunables.from_obj({}).cache_bytes == 4096
+    for bad in ("-1", "lots"):
+        monkeypatch.setenv("CHUNKY_BITS_TORCH_CACHE_BYTES", bad)
+        assert Tunables.from_obj({}).cache_bytes == 0
+    monkeypatch.delenv("CHUNKY_BITS_TORCH_CACHE_BYTES")
+    monkeypatch.setenv("CHUNKY_BITS_TPU_CACHE_BYTES", "4096")
+    assert Tunables.from_obj({}).cache_bytes == 0
 
 
 # ---- goldens and pm-msr against the JAX package ----

@@ -228,9 +228,32 @@ def test_degraded_read_after_deleted_chunks(tmp_path):
 
 
 def test_cache_is_not_yet_ported(tmp_path):
-    ref = FileReference(length=0, parts=[])
-    with pytest.raises(Exception, match="not yet ported"):
-        run(FileReadBuilder(ref).with_cache(object()).read_all())
+    """The chunk cache is ported: a read builder with a cache reads an
+    empty reference, and a real object twice, the second time from the
+    cache (``tests/test_torch_chunk_cache.py`` holds the rest)."""
+    from chunky_bits_tpu_torch.file import ChunkCache
+
+    async def main():
+        empty = FileReference(length=0, parts=[])
+        assert await FileReadBuilder(empty).with_cache(
+            ChunkCache(1 << 20)).read_all() == b""
+        dirs = [str(tmp_path / f"d{i}") for i in range(3)]
+        for d in dirs:
+            os.mkdir(d)
+        payload = bytes(range(256)) * 40
+        ref = await FileWriteBuilder().with_backend("torch") \
+            .with_destination(LocationsDestination(dirs)) \
+            .with_chunk_size(4096).with_data_chunks(2) \
+            .with_parity_chunks(1).write(aio.BytesReader(payload))
+        cache = ChunkCache(1 << 20)
+        builder = FileReadBuilder(ref).with_backend("torch") \
+            .with_cache(cache)
+        assert await builder.read_all() == payload
+        hits = cache.hits
+        assert await builder.read_all() == payload
+        assert cache.hits > hits
+
+    run(main())
 
 
 def relative_report(text, root):

@@ -4,7 +4,8 @@ profiler and the metrics registry.
 
 Cases carried over from ``tests/test_location.py`` and ``tests/test_hash.py``
 run on both packages where both serve the scheme; the schemes the port
-does not serve yet must be refused by name.
+does not serve yet must be refused by name.  The ``http(s)://`` cases run
+against ``tests/http_node.py``'s ``FakeHttpNode`` on an ephemeral port.
 """
 
 import asyncio
@@ -75,8 +76,15 @@ def test_parse_and_display_equal_jax(s):
                                "(7,12)https://example.com/x",
                                "slab:/store/chunk", "sim:fabric/n0/c"])
 def test_schemes_not_yet_ported_are_refused(s):
-    with pytest.raises(LocationParseError, match="not yet ported"):
-        Location.parse(s)
+    """``slab:`` and ``sim:`` are refused by name; ``http(s)://`` is
+    ported now and parses as the JAX package parses it."""
+    if s.startswith("slab:") or s.startswith("sim:"):
+        with pytest.raises(LocationParseError, match="not yet ported"):
+            Location.parse(s)
+        return
+    ours, theirs = Location.parse(s), jlocation.Location.parse(s)
+    assert (ours.kind, ours.target, str(ours)) == \
+        (theirs.kind, theirs.target, str(theirs)) and ours.is_http()
 
 
 def test_parse_errors_and_hierarchy():
@@ -366,3 +374,264 @@ def test_yaml_round_trip_matches_safe_dump():
     assert yamlio.yaml_dump(obj, sort_keys=False) \
         == yaml.safe_dump(obj, sort_keys=False)
     assert yamlio.yaml_load(yamlio.yaml_dump(obj)) == obj
+
+
+# ---- the http(s):// scheme, against tests/http_node.py ----
+
+class RecordingNode:
+    """A ``FakeHttpNode`` that records each GET's User-Agent and can
+    answer the next GETs with a transient status."""
+
+    @staticmethod
+    async def start(get_fail_status=0, get_fail_remaining=0):
+        from tests.http_node import FakeHttpNode
+
+        node = FakeHttpNode()
+        node.agents = []
+        node.get_fail = [get_fail_status, get_fail_remaining]
+        plain_get = node._get
+
+        async def _get(request):
+            from aiohttp import web
+
+            node.agents.append(request.headers.get("User-Agent"))
+            if node.get_fail[1] > 0:
+                node.get_fail[1] -= 1
+                return web.Response(status=node.get_fail[0])
+            return await plain_get(request)
+
+        node._get = _get
+        return await node.start()
+
+
+def test_http_full_cycle():
+    from chunky_bits_tpu_torch.errors import HttpStatusError
+
+    async def main():
+        node = await RecordingNode.start()
+        cx = LocationContext()
+        try:
+            base = Location.parse(node.url + "/data")
+            hash_ = AnyHash.from_buf(b"http shard")
+            child = await base.write_subfile(str(hash_), b"http shard", cx)
+            assert child.is_child_of(base) and base.is_parent_of(child)
+            assert str(child) == str(jlocation.Location.parse(
+                node.url + "/data").child(str(hash_)))
+            assert await child.read(cx) == b"http shard"
+            assert await child.file_exists(cx)
+            assert await child.file_len(cx) == len(b"http shard")
+            icx = cx.but_with(on_conflict=IGNORE)
+            await child.write(b"changed", icx)
+            assert await child.read(cx) == b"http shard"
+            await child.write(b"changed", cx)
+            assert await child.read(cx) == b"changed"
+            assert await child.with_range(Range(2, 3, False)).read(cx) \
+                == b"ang"
+            assert await child.with_range(Range(4, None, False)).read(cx) \
+                == b"ged"
+            assert await child.with_range(Range(5, 4, True)).read(cx) \
+                == b"ed\0\0"
+            reader = await child.reader(cx)
+            assert await reader.read(3) == b"cha"
+            await aio.close_reader(reader)
+            await child.delete(cx)
+            with pytest.raises(HttpStatusError):
+                await child.read(cx)
+            assert not await child.file_exists(cx)
+            with pytest.raises(HttpStatusError):
+                await child.file_len(cx)
+            dloc = Location.parse(node.url + "/streamed")
+            n = await dloc.write_from_reader(
+                aio.BytesReader(b"x" * 100000), cx)
+            assert n == 100000 and node.store["streamed"] == b"x" * 100000
+            assert await dloc.read_view(cx) is None  # local only
+            with pytest.raises(HttpStatusError):
+                await Location.parse(node.url + "/fail/x").write(b"d", cx)
+            with pytest.raises(HttpStatusError):
+                await Location.parse(node.url + "/fail/y") \
+                    .write_from_reader(aio.BytesReader(b"d"), cx)
+            # redirects are followed without https_only
+            assert await Location.parse(node.url + "/redir/streamed") \
+                .read(cx) == b"x" * 100000
+        finally:
+            await cx.aclose()
+            await node.stop()
+
+    run(main())
+
+
+def test_https_only_refuses_plain_http_and_redirects():
+    from types import SimpleNamespace
+    from urllib.parse import urlsplit
+
+    async def main():
+        node = await RecordingNode.start()
+        open_cx = LocationContext()
+        cx = LocationContext(https_only=True)
+        try:
+            loc = Location.parse(node.url + "/sec")
+            await loc.write(b"payload", open_cx)
+            for op in (loc.read(cx), loc.reader(cx), loc.write(b"x", cx),
+                       loc.write_from_reader(aio.BytesReader(b"x"), cx),
+                       loc.delete(cx), loc.file_exists(cx),
+                       loc.file_len(cx)):
+                with pytest.raises(LocationError, match="https_only"):
+                    await op
+            assert await loc.read(open_cx) == b"payload"
+        finally:
+            await open_cx.aclose()
+            await node.stop()
+
+    run(main())
+
+    class StubUrl:
+        def __init__(self, url):
+            self.scheme = urlsplit(url).scheme
+            self._url = url
+
+        def __str__(self):
+            return self._url
+
+    def resp(status, url, history=()):
+        return SimpleNamespace(
+            status=status, url=StubUrl(url), release=lambda: None,
+            history=tuple(SimpleNamespace(url=StubUrl(u))
+                          for u in history))
+
+    cx = LocationContext(https_only=True)
+    loc = Location.http("https://node.example/chunk")
+    with pytest.raises(LocationError, match="refusing redirect"):
+        loc._check_redirect(cx, resp(302, "https://node.example/chunk"))
+    with pytest.raises(LocationError, match="plain http"):
+        loc._check_response_hops(cx, resp(
+            200, "http://node.example/chunk",
+            history=["https://node.example/chunk"]))
+    loc._check_response_hops(cx, resp(
+        200, "https://n2.example/chunk",
+        history=["https://node.example/chunk"]))
+    loc._check_redirect(LocationContext(),
+                        resp(302, "https://node.example/chunk"))
+    with pytest.raises(LocationParseError):
+        Location.http("/not/a/url")
+    with pytest.raises(LocationParseError):
+        Location.parse("http:///no-host")
+
+
+def test_user_agent_rides_every_request():
+    async def main():
+        node = await RecordingNode.start()
+        cx = LocationContext(user_agent="chunky-bits-test/1")
+        plain = LocationContext()
+        try:
+            loc = Location.parse(node.url + "/ua")
+            await loc.write(b"ua", cx)
+            assert await loc.read(cx) == b"ua"
+            assert await loc.read(plain) == b"ua"
+            assert node.agents[0] == "chunky-bits-test/1"
+            assert node.agents[1] != "chunky-bits-test/1"
+            # one session per loop, shared by but_with copies
+            assert cx.http_session() is cx.but_with(
+                on_conflict=IGNORE).http_session()
+        finally:
+            await cx.aclose()
+            await plain.aclose()
+            await node.stop()
+
+    run(main())
+
+
+@pytest.mark.parametrize("status,retried", [(503, True), (429, True),
+                                            (404, False)])
+def test_transient_http_statuses_are_retried(tmp_path, status, retried):
+    """A part read over http retries a transient status on the same
+    location (``read_retries``) and falls through on any other; a shard
+    PUT answered 503 once lands on its retry."""
+    from chunky_bits_tpu_torch.cluster.destination import (ClusterWriter,
+                                                           _WriterState)
+    from chunky_bits_tpu_torch.cluster.nodes import ClusterNodes
+    from chunky_bits_tpu_torch.cluster.profile import ClusterProfile
+    from chunky_bits_tpu_torch.file.chunk import Chunk
+    from chunky_bits_tpu_torch.file.file_part import FilePart
+
+    payload = np.random.default_rng(4).integers(
+        0, 256, 4096, dtype=np.uint8).tobytes()
+
+    async def main():
+        node = await RecordingNode.start(status, 1)
+        cx = LocationContext(read_retries=1)
+        try:
+            node.put_fail_status, node.put_fail_remaining = 503, 1
+            nodes = ClusterNodes.from_obj([{"location": node.url + "/"}])
+            writer = ClusterWriter(_WriterState(
+                nodes, ClusterProfile.from_obj({"data": 1, "parity": 0}),
+                cx), None, None)
+            hash_ = AnyHash.from_buf(payload)
+            locations = await writer.write_shard(hash_, payload)
+            assert node.put_attempts == 2 and len(locations) == 1
+            local = tmp_path / "replica"
+            local.write_bytes(payload)
+            part = FilePart(chunksize=len(payload), data=[Chunk(
+                hash_, [locations[0], Location.local(str(local))])],
+                parity=[])
+            got = await part.read(cx, backend="torch")
+            assert got == payload
+            # the remote served the retry, or the local replica served
+            # the fall-through
+            assert len(node.agents) == (2 if retried else 1)
+        finally:
+            await cx.aclose()
+            await node.stop()
+
+    run(main())
+
+
+def test_cluster_over_http_nodes_both_packages(tmp_path):
+    """A cluster of FakeHttpNode destinations written by one package reads
+    back byte-identical through the other, degraded reads included."""
+    from chunky_bits_tpu.cluster import Cluster as JaxCluster
+    from chunky_bits_tpu.utils import aio as jaio
+    from chunky_bits_tpu_torch.cluster import Cluster
+
+    payload = np.random.default_rng(5).integers(
+        0, 256, 3 * (3 << 12) + 777, dtype=np.uint8).tobytes()
+
+    async def main():
+        from tests.http_node import FakeHttpNode
+
+        nodes = [await FakeHttpNode().start() for _ in range(5)]
+        meta = tmp_path / "meta"
+        meta.mkdir()
+        spec = {"destinations": [{"location": n.url + f"/d{i}/"}
+                                 for i, n in enumerate(nodes)],
+                "metadata": {"type": "path", "format": "yaml",
+                             "path": str(meta)},
+                "profiles": {"default": {"data": 3, "parity": 2,
+                                         "chunk_size": 12}},
+                "tunables": {"backend": "numpy"}}
+        ours, theirs = Cluster.from_obj(spec), JaxCluster.from_obj(spec)
+        try:
+            await ours.write_file("by-port", aio.BytesReader(payload),
+                                  ours.get_profile(None))
+            await theirs.write_file("by-jax", jaio.BytesReader(payload),
+                                    theirs.get_profile(None))
+            assert await ours.metadata.read("by-port") == \
+                await theirs.metadata.read("by-jax")
+            for reader, name in ((theirs, "by-port"), (ours, "by-jax")):
+                ref = await reader.get_file_ref(name)
+                got = await reader.file_read_builder(ref).read_all()
+                assert got == payload
+            # lose two chunks of every part: the port rebuilds them
+            ref = await ours.get_file_ref("by-jax")
+            cx = ours.tunables.location_context()
+            for part in ref.parts:
+                for chunk in (part.data[0], part.parity[1]):
+                    await chunk.locations[0].delete(cx)
+            got = await ours.file_read_builder(ref).read_all()
+            assert got == payload
+        finally:
+            await ours.tunables.location_context().aclose()
+            await theirs.tunables.location_context().aclose()
+            for n in nodes:
+                await n.stop()
+
+    run(main())
