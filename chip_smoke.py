@@ -58,14 +58,28 @@ drives the main paths:
   through a worker's SIGKILL and the supervisor's SIGINT; and a config-2
   cluster of ``http://`` destinations on a chunk node served from this
   process (~256 MiB: cp, cat, shards 0, 1, 12 and 13 of every part
-  deleted on the node, cat, resilver, verify, cat).
+  deleted on the node, cat, resilver, verify, cat);
+* the ``storage`` group, slab destinations, meta-log metadata, scrub and
+  the repair planner: config 2 through the CLI in this process over 7
+  ``slab:`` + 7 ``path`` destinations with ``metadata: {type:
+  meta-log}`` and 4 KiB digest blocks (~1 GiB: cp, one flipped byte in
+  one chunk of 20 parts and the only replica of a whole chunk dropped in
+  10 others, ``scrub --once`` with exact scrub and repair counts, verify,
+  cat, meta-compact, ls, find-unused-hashes over the slab and path
+  roots); BASELINE.md config 11 (200 objects of 3 x 64 KiB, 40 flipped
+  bytes, one planner pass with a profiler: 40 decode plans, 480 KiB of
+  helper reads); config 13's rs and pm-msr legs (120 objects of 5 x 16
+  KiB, 30 lost chunks: 2400 and 960 KiB of helper bytes); and config
+  11's cluster served by ``gateway.serve`` with ``scrub_bytes_per_sec``
+  set until ``/scrub/status`` shows the pass that repaired it.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
 mesh block launches one kernel per logical device with work, and a tp
 block one reduce-and-pack per 'dp' group).  Then it times each kernel
 beside its plain version and its bound (K1 also at the one-part shapes of
-the read dispatches and at config 5's stripe); the SHA bound
+the read dispatches, at config 5's stripe and at the repair planner's
+commonest shapes); the SHA bound
 counts the instructions of one compression, checked against the compiled
 loop (``cuobjdump -sass``).
 
@@ -1106,11 +1120,15 @@ def same_file(a: str, b: str) -> bool:
 
 
 def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs",
-                 cache_bytes: int = 0, locations=None) -> str:
-    """A cluster of d+p ``path`` destinations under ``root`` (or of
-    ``locations``), a ``path`` metadata store and one profile of ``geo``;
-    ``backend`` None leaves it out (the port's default backend), and
-    ``cache_bytes`` above 0 turns the read cache on."""
+                 cache_bytes: int = 0, locations=None, slabs: int = 0,
+                 meta: str = "path", block: int = 0,
+                 scrub_rate: int = 0) -> str:
+    """A cluster of d+p destinations under ``root`` (the first ``slabs``
+    of them ``slab:`` stores, the rest ``path``; or ``locations``), a
+    ``meta`` metadata store (``path`` or ``meta-log``) and one profile of
+    ``geo``; ``backend`` None leaves it out (the port's default backend),
+    and ``cache_bytes``, ``block`` (``repair_block_bytes``) and
+    ``scrub_rate`` (``scrub_bytes_per_sec``) above 0 set those tunables."""
     import yaml
 
     dirs = locations
@@ -1118,10 +1136,11 @@ def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs",
         dirs = [os.path.join(root, f"d{i}") for i in range(geo.d + geo.p)]
         for d in dirs:
             os.makedirs(d)
+        dirs = [f"slab:{d}" if i < slabs else d for i, d in enumerate(dirs)]
     os.makedirs(os.path.join(root, "meta"))
     spec = {
         "destinations": [{"location": d} for d in dirs],
-        "metadata": {"type": "path", "format": "yaml",
+        "metadata": {"type": meta, "format": "yaml",
                      "path": os.path.join(root, "meta")},
         "profiles": {"default": {
             "data": geo.d, "parity": geo.p,
@@ -1130,8 +1149,11 @@ def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs",
     tunables = {}
     if backend is not None:
         tunables["backend"] = backend
-    if cache_bytes:
-        tunables["cache_bytes"] = cache_bytes
+    for key, value in (("cache_bytes", cache_bytes),
+                       ("repair_block_bytes", block),
+                       ("scrub_bytes_per_sec", scrub_rate)):
+        if value:
+            tunables[key] = value
     if tunables:
         spec["tunables"] = tunables
     path = os.path.join(root, "cluster.yaml")
@@ -1964,11 +1986,381 @@ def phase_gateway(blob: bytes, path, counts, be, tp_rec) -> dict:
     return expected
 
 
+# ---- the storage group ----
+
+#: BASELINE config 11 (bench.py:2136ff): 200 objects of 3 x 64 KiB, d=3
+#: p=2, 64 KiB chunks, 4 KiB digest blocks, 3 slab: + 2 path destinations,
+#: one flipped byte in one chunk replica of 40 objects
+CONFIG11 = Geometry(3, 2, 1 << 16, ())
+C11_OBJECTS, C11_CORRUPT, BLOCK = 200, 40, 4096
+#: BASELINE config 13: 120 objects of 5 x 16 KiB, d=5 p=4, 9 path nodes,
+#: 30 objects lose the only replica of one data chunk
+CONFIG13 = Geometry(5, 4, 1 << 14, ())
+C13_OBJECTS, C13_LOST = 120, 30
+#: config 2 on disk: parts whose chunk gets one flipped byte, then parts
+#: that lose the only replica of a whole chunk
+C2_FLIPPED, C2_DROPPED = 20, 10
+#: the gateway's scrub rate: far above what one pass reads, so the pass
+#: is not throttled
+GW_SCRUB_RATE = 1 << 30
+
+
+def flip_replica(location, offset: int) -> None:
+    """One flipped byte at chunk offset ``offset`` of a path or slab
+    replica."""
+    if location.is_slab():
+        path, base, _n = location.slab_extent()
+    else:
+        path, base = location.target, 0
+    with open(path, "r+b") as f:
+        f.seek(base + offset)
+        byte = f.read(1)
+        f.seek(base + offset)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def drop_replica(location) -> None:
+    """The replica gone: its file removed, or its extent marked dead."""
+    if location.is_slab():
+        asyncio.run(location.delete())
+    else:
+        os.remove(location.target)
+
+
+def unique_chunk(ref, part_no: int, start: int):
+    """The first chunk of part ``part_no`` from index ``start`` on (cyclic)
+    whose digest no other chunk of the object shares."""
+    digests = [str(c.hash) for part in ref.parts
+               for c in part.data + part.parity]
+    row = ref.parts[part_no].data + ref.parts[part_no].parity
+    for j in range(len(row)):
+        chunk = row[(start + j) % len(row)]
+        if digests.count(str(chunk.hash)) == 1:
+            return chunk
+    raise AssertionError(f"part {part_no} has no chunk of its own")
+
+
+class ScrubCapture:
+    """Keeps the stats of every ``ScrubDaemon.run_once`` while open (the
+    CLI prints only the one-line summary)."""
+
+    def __init__(self):
+        from chunky_bits_tpu_torch.cluster import scrub
+
+        self.mod, self.real, self.stats = scrub, scrub.ScrubDaemon.run_once, []
+
+        async def run_once(daemon):
+            out = await self.real(daemon)
+            self.stats.append(out)
+            return out
+
+        scrub.ScrubDaemon.run_once = run_once
+
+    def close(self) -> None:
+        self.mod.ScrubDaemon.run_once = self.real
+
+
+def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
+    """The storage group: slab destinations, meta-log metadata, scrub and
+    the repair planner on the card.  (1) config 2 through the CLI in this
+    process over 7 ``slab:`` + 7 ``path`` destinations: cp, 20 flipped
+    bytes and 10 lost chunks, ``scrub --once``, verify, cat, meta-compact,
+    ls, find-unused-hashes; (2) config 11, one planner pass with a
+    profiler; (3) config 13's rs and pm-msr legs; (4) config 11's cluster
+    served by ``gateway.serve`` with the scrub daemon on.  Each step is a
+    path; its K1 launches are held against the ``cuda`` backend's
+    recorded dispatches and must be nonzero on every repair step.
+    Returns (expected launches, the decode shapes the planner dispatched
+    and how often)."""
+    import collections
+    import tempfile
+
+    from chunky_bits_tpu_torch.cluster import Cluster
+    from chunky_bits_tpu_torch.cluster.meta_log import MetaLogStore
+    from chunky_bits_tpu_torch.cluster.scrub import ScrubDaemon
+    from chunky_bits_tpu_torch.file.profiler import new_profiler
+    from chunky_bits_tpu_torch.gateway import serve
+    from chunky_bits_tpu_torch.obs.metrics import parse_exposition
+    from chunky_bits_tpu_torch.utils import aio
+    from chunky_bits_tpu_torch.utils.yamlio import yaml_load
+
+    expected = {}
+    shapes_seen: collections.Counter = collections.Counter()
+    rec = ApplyRecorder(be)
+    capture = ScrubCapture()
+
+    def step(name: str, fn, *args, nbytes: int = 0, k1: bool = False,
+             repair: bool = False):
+        rec.expected(), tp_rec.expected()  # work between steps: not this one
+        t0 = time.perf_counter()
+        out = path(name, fn, *args)
+        dt = time.perf_counter() - t0
+        shapes = list(rec.shapes)
+        want, mesh = rec.expected(), tp_rec.expected()
+        expected[name] = {k: want[k] + mesh[k] for k in KERNELS}
+        if k1:
+            assert counts[name]["gf_apply"] > 0 and want["gf_apply"] > 0, \
+                (name, counts[name], want)
+        if repair:
+            shapes_seen.update(shapes)
+        log(f"  {name}: {dt:.2f} s"
+            + (f", {gib_s(nbytes, dt):.2f} GiB/s" if nbytes else "")
+            + f", K1 launches {counts[name]['gf_apply']}")
+        return out, dt, shapes
+
+    def cluster_of(conf: str):
+        with open(conf) as f:
+            return Cluster.from_obj(yaml_load(f.read()))
+
+    def ref_in(top: str, name: str):
+        from chunky_bits_tpu_torch.file.file_reference import FileReference
+
+        store = MetaLogStore(os.path.join(top, "meta"))
+        return FileReference.from_obj(yaml_load(store.read_bytes(name)))
+
+    def plans_per_launch(stats, shapes) -> str:
+        rep = stats.repair
+        plans = rep["plans_decode"] + rep["plans_msr"]
+        return (f"{plans} plans in {len(shapes)} dispatches "
+                f"({plans / max(len(shapes), 1):.2f} plans a dispatch; "
+                f"shapes {dict(collections.Counter(shapes))})")
+
+    with tempfile.TemporaryDirectory(prefix="cb-st-") as root:
+        # ---- (1) config 2 through the CLI, slab + path, meta-log ----
+        top = os.path.join(root, "c2")
+        os.makedirs(top)
+        conf = cluster_yaml(top, CONFIG2, "cuda", slabs=7, meta="meta-log",
+                            block=BLOCK)
+        total = DISK_PARTS * D * CHUNK + TAIL
+        src = os.path.join(root, "src2.bin")
+        write_source(src, blob, total)
+        out = os.path.join(root, "out")
+        txt = os.path.join(root, "stdout.txt")
+        obj = f"{conf}#obj"
+        log(f"storage config 2: {total / 2**30:.3f} GiB over 7 slab: + 7 "
+            f"path destinations, meta-log metadata, 4 KiB digest blocks, "
+            f"backend: cuda")
+        step("st_cp", run_cli, ["cp", src, obj], txt, nbytes=total, k1=True)
+        ref = ref_in(top, "obj")
+        for i in range(C2_FLIPPED):
+            flip_replica(unique_chunk(ref, i, i).locations[0],
+                         BLOCK * (7 * i % (CHUNK // BLOCK)) + 123 + i)
+        for i in range(C2_FLIPPED, C2_FLIPPED + C2_DROPPED):
+            drop_replica(unique_chunk(ref, i, i).locations[0])
+        replica_bytes = (DISK_PARTS * (D + P) * CHUNK
+                         + (D + P) * -(-TAIL // D))
+        (text, dt, shapes) = step("st_scrub", run_cli,
+                                  ["scrub", "--once", conf], txt,
+                                  nbytes=replica_bytes, k1=True,
+                                  repair=True)
+        stats = capture.stats.pop()
+        rep = stats.repair
+        log(f"  {text.decode().strip()}")
+        assert (stats.corrupt, stats.unavailable, stats.repair_failures) \
+            == (C2_FLIPPED, C2_DROPPED, 0), stats
+        assert stats.repaired == C2_FLIPPED + C2_DROPPED, stats
+        assert (rep["plans_decode"], rep["plans_fallback"]) == \
+            (C2_FLIPPED + C2_DROPPED, 0), rep
+        assert rep["helper_bytes_decode"] == \
+            C2_FLIPPED * D * BLOCK + C2_DROPPED * D * CHUNK, rep
+        assert stats.bytes_verified == replica_bytes - C2_DROPPED * CHUNK
+        log(f"  scrub: {stats.bytes_verified / 2**30:.3f} GiB verified at "
+            f"{gib_s(stats.bytes_verified, dt):.2f} GiB/s; repair "
+            f"{rep['helper_bytes_decode']} helper bytes for "
+            f"{rep['bytes_rebuilt']} rebuilt "
+            f"({rep['helper_bytes_per_rebuilt_byte']} a byte); "
+            f"{plans_per_launch(stats, shapes)}")
+        report = step("st_verify", run_cli, ["verify", obj], txt,
+                      nbytes=total)[0].decode()
+        assert report.startswith("file\tValid"), report[:200]
+        assert "Invalid" not in report and "Unavailable" not in report
+        step("st_cat", run_cli, ["cat", obj], out, nbytes=total, k1=True)
+        assert same_file(src, out), "cat after scrub differs"
+        compact = json.loads(step("st_meta_compact", run_cli,
+                                  ["meta-compact", conf], txt)[0])
+        assert compact["live_refs"] == 1, compact
+        listed = step("st_ls", run_cli, ["ls", "-r", f"{conf}#."],
+                      txt)[0].decode().split()
+        assert listed == [".", "obj"], listed
+        roots = [f"slab:{top}/d{i}" for i in range(7)] + \
+            [f"{top}/d{i}" for i in range(7, D + P)]
+        unused = step("st_find_unused_hashes", run_cli,
+                      ["find-unused-hashes", "--grace-seconds", "0",
+                       f"{conf}#.", "--"] + roots, txt)[0].decode().split()
+        assert unused == [], unused[:4]
+        log(f"  verify Valid, cat equal to the source, meta-compact "
+            f"{compact}, ls through the meta-log, find-unused-hashes "
+            f"listed no live chunk")
+        os.remove(src)
+        stamp("storage config 2")
+
+        # ---- (2) config 11: one planner pass with a profiler ----
+        top = os.path.join(root, "c11")
+        os.makedirs(top)
+        conf11 = cluster_yaml(top, CONFIG11, "cuda", slabs=3,
+                              meta="meta-log", block=BLOCK)
+        cluster = cluster_of(conf11)
+        rng = np.random.default_rng(SEED + 11)
+        payloads = [rng.integers(0, 256, 3 * CONFIG11.chunk,
+                                 dtype=np.uint8).tobytes()
+                    for _ in range(C11_OBJECTS)]
+        picks = np.random.default_rng(SEED + 12)
+        victims = sorted(picks.choice(C11_OBJECTS, C11_CORRUPT,
+                                      replace=False).tolist())
+
+        async def write_all(cluster, names_payloads):
+            profile = cluster.get_profile()
+            for name, data in names_payloads:
+                await cluster.write_file(name, aio.BytesReader(data),
+                                         profile)
+
+        async def read_all(cluster, names_payloads):
+            for name, data in names_payloads:
+                got = await cluster.file_read_builder(
+                    await cluster.get_file_ref(name)).read_all()
+                assert got == data, f"{name} differs from its source"
+
+        objs11 = [(f"o{i:04d}", data) for i, data in enumerate(payloads)]
+        step("st11_write", lambda: asyncio.run(write_all(cluster, objs11)),
+             nbytes=C11_OBJECTS * 3 * CONFIG11.chunk, k1=True)
+
+        def damage11(seed: int) -> None:
+            pick = np.random.default_rng(seed)
+            for i in victims:
+                ref = asyncio.run(cluster.get_file_ref(objs11[i][0]))
+                chunk = ref.parts[0].data[int(pick.integers(3))]
+                flip_replica(chunk.locations[0],
+                             int(pick.integers(CONFIG11.chunk)))
+
+        damage11(SEED + 13)
+        profiler, _reporter = new_profiler()
+        daemon = ScrubDaemon(cluster, bytes_per_sec=0, profiler=profiler)
+        stats, dt, shapes = step("st11_scrub",
+                                 lambda: asyncio.run(daemon.run_once()),
+                                 k1=True, repair=True)
+        rep = stats.repair
+        assert (stats.corrupt, stats.repaired, stats.repair_failures) == \
+            (C11_CORRUPT, C11_CORRUPT, 0), stats
+        assert (rep["plans_decode"], rep["plans_fallback"]) == \
+            (C11_CORRUPT, 0), rep
+        assert rep["helper_bytes_decode"] == C11_CORRUPT * 3 * BLOCK, rep
+        asyncio.run(read_all(cluster, objs11))
+        log(f"  config 11: {C11_CORRUPT} decode plans, "
+            f"{rep['helper_bytes_decode'] >> 10} KiB of helper reads, "
+            f"pass {dt:.2f} s, K1 launches "
+            f"{counts['st11_scrub']['gf_apply']}; "
+            f"{plans_per_launch(stats, shapes)}; all {C11_OBJECTS} objects "
+            f"equal their sources")
+        stamp("storage config 11")
+
+        # ---- (3) config 13: the rs and pm-msr legs ----
+        for code in ("rs", "pm-msr"):
+            top = os.path.join(root, f"c13-{code}")
+            os.makedirs(top)
+            conf13 = cluster_yaml(top, CONFIG13, "cuda", code=code,
+                                  meta="meta-log")
+            c13 = cluster_of(conf13)
+            rng = np.random.default_rng(SEED + 13)
+            objs13 = [(f"o{i:04d}", rng.integers(
+                0, 256, CONFIG13.d * CONFIG13.chunk,
+                dtype=np.uint8).tobytes()) for i in range(C13_OBJECTS)]
+            tag = "pm" if code == "pm-msr" else "rs"
+            step(f"st13_{tag}_write",
+                 lambda: asyncio.run(write_all(c13, objs13)),
+                 nbytes=C13_OBJECTS * CONFIG13.d * CONFIG13.chunk, k1=True)
+            for i in range(C13_LOST):
+                ref = asyncio.run(c13.get_file_ref(objs13[i][0]))
+                drop_replica(ref.parts[0].data[i % CONFIG13.d].locations[0])
+            daemon = ScrubDaemon(c13, bytes_per_sec=0,
+                                 profiler=new_profiler()[0])
+            stats, dt, shapes = step(
+                f"st13_{tag}_scrub", lambda: asyncio.run(daemon.run_once()),
+                k1=True, repair=True)
+            rep = stats.repair
+            assert (stats.unavailable, stats.repaired,
+                    stats.repair_failures) == (C13_LOST, C13_LOST, 0), stats
+            if code == "rs":
+                assert rep["plans_decode"] == C13_LOST, rep
+                assert rep["helper_bytes_decode"] == \
+                    C13_LOST * CONFIG13.d * CONFIG13.chunk, rep
+                helper = rep["helper_bytes_decode"]
+            else:
+                assert (rep["plans_msr"], rep["plans_decode"]) == \
+                    (C13_LOST, 0), rep
+                beta = CONFIG13.chunk // (CONFIG13.d - 1)
+                assert rep["helper_bytes_msr"] == \
+                    C13_LOST * 2 * (CONFIG13.d - 1) * beta, rep
+                helper = rep["helper_bytes_msr"]
+            assert rep["plans_fallback"] == 0, rep
+            asyncio.run(read_all(c13, objs13))
+            log(f"  config 13 {code}: {helper >> 10} KiB of helper bytes "
+                f"for {rep['bytes_rebuilt'] >> 10} KiB rebuilt, pass "
+                f"{dt:.2f} s, K1 launches "
+                f"{counts[f'st13_{tag}_scrub']['gf_apply']}; "
+                f"{plans_per_launch(stats, shapes)}; all objects equal "
+                f"their sources")
+        stamp("storage config 13")
+
+        # ---- (4) config 11's cluster served with the scrub daemon on ----
+        with open(conf11) as f:
+            spec = yaml_load(f.read())
+        spec["tunables"]["scrub_bytes_per_sec"] = GW_SCRUB_RATE
+        gw_cluster = Cluster.from_obj(spec)
+        cluster = gw_cluster
+        damage11(SEED + 14)
+
+        def serve_and_wait():
+            server = ServerThread(
+                lambda on_ready: serve(gw_cluster, "127.0.0.1", 0,
+                                       on_ready=on_ready), "gateway")
+            try:
+                deadline = time.time() + 120
+                while True:
+                    status, _h, resp = http_request(server.port, "GET",
+                                                    "/scrub/status")
+                    body = json.loads(resp.read())
+                    assert status == 200 and body["enabled"] is True, body
+                    if body["passes"] >= 1:
+                        break
+                    assert time.time() < deadline, body
+                    time.sleep(0.1)
+                name, data = objs11[victims[0]]
+                status, _h, resp = http_request(server.port, "GET",
+                                                f"/{name}")
+                assert status == 200 and resp.read() == data
+                metrics = parse_metrics(server.port)
+                for fam in ("cb_scrub_passes_total",
+                            "cb_scrub_repaired_total",
+                            "cb_repair_plans_total",
+                            "cb_repair_helper_bytes_total"):
+                    assert fam in metrics, fam
+                return body
+            finally:
+                server.stop()
+
+        body, dt, shapes = step("st_gw_scrub", serve_and_wait, k1=True,
+                                repair=True)
+        assert (body["corrupt"], body["repaired"], body["repair_failures"],
+                body["running"]) == (C11_CORRUPT, C11_CORRUPT, 0, True), body
+        assert body["repair"]["plans_decode"] == C11_CORRUPT, body
+        asyncio.run(read_all(gw_cluster, objs11))
+        log(f"  gateway: /scrub/status enabled, first pass "
+            f"{body['last_pass_seconds']} s repaired {body['repaired']} "
+            f"replicas with {body['repair']['plans_decode']} decode plans; "
+            f"a GET of a repaired object equals its source; cb_scrub_* and "
+            f"cb_repair_* parse")
+    capture.close()
+    rec.close()
+    return expected, shapes_seen
+
+
 def phase_timings(torch, dev, coder, data: np.ndarray,
-                  parity: np.ndarray) -> list[dict]:
+                  parity: np.ndarray, repair_shapes=None) -> list[dict]:
     """Each kernel at the main path's launch shape beside its plain
     version and its bound; the two GF kernels in turns (K1, K3, K3, K1).
-    No single PyTorch call computes any of the three functions, so
+    K1 also at the three commonest shapes of the repair planner's
+    dispatches (``repair_shapes``, a Counter of ``(B, r, k, S)``).  No
+    single PyTorch call computes any of the three functions, so
     ``library_ms`` is null."""
     from chunky_bits_tpu_torch.ops import _build, gf_kernel, matrix, sha256
 
@@ -2060,6 +2452,31 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
             f"{ms_g:.4f} ms, bound {bound_g:.4f} ms ({by_g}); equal to the "
             f"plain version")
         del x_g, got_g
+    # K1 at the repair planner's commonest dispatch shapes (one part, a
+    # digest block or a whole chunk; a pm-msr projection or combine)
+    gf["repair"] = []
+    for (n, r, k, s_), times in (repair_shapes or {}).most_common(3):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        t_g = gf_kernel.to_device_matrix(
+            matrix.build_encode_matrix(k, r)[k:], dev)
+        x_g = torch.randint(0, 256, (n, k, s_), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        got_g = gf_kernel.apply_matrix(t_g, x_g)
+        assert torch.equal(got_g, gf_kernel.apply_matrix_plain(t_g, x_g))
+        ms_g = time_cuda(torch, lambda: gf_kernel.apply_matrix(t_g, x_g),
+                         inner=10)
+        plain_g = time_cuda(
+            torch, lambda: gf_kernel.apply_matrix_plain(t_g, x_g), reps=1)
+        bound_g, by_g = gf_apply_bound(n, k, r, s_, t_g.numel())
+        gf["repair"].append({"shape": [n, k, s_], "rows": r,
+                             "launches": times, "ms": ms_g,
+                             "plain_ms": plain_g, "bound_ms": bound_g,
+                             "bound_by": by_g})
+        log(f"gf_apply at a repair shape [{n}, {k}, {s_}] -> [{n}, {r}, "
+            f"{s_}] ({times} launches): {ms_g:.4f} ms, plain "
+            f"{plain_g:.3f} ms, bound {bound_g:.5f} ms ({by_g}); equal to "
+            f"the plain version")
+        del x_g, got_g
     packed = dict(gf, name="gf_apply_packed",
                   source="chunky_bits_tpu_torch/csrc/gf_apply_packed.cu",
                   replaces="chunky_bits_tpu/ops/pallas_kernels.py:157",
@@ -2067,7 +2484,8 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
                   decode_ms=k3_ms_dec, decode_plain_ms=k3_plain_ms_dec,
                   gf_apply_ms=ms, gf_apply_decode_ms=ms_dec)
     for key in [key for key in packed if key.startswith(("one_part",
-                                                          "config5"))]:
+                                                          "config5",
+                                                          "repair"))]:
         del packed[key]
     log(f"gf_apply_packed [{b}, {D}, {s}] -> [{b}, {P}, {s}]: encode "
         f"{k3_ms:.3f} ms, 4-erasure decode {k3_ms_dec:.3f} ms (gf_apply "
@@ -2734,12 +3152,20 @@ def main() -> int:
 
     # the gateway group: the HTTP gateway and http:// destinations
     expected.update(phase_gateway(blob, path, counts, be, tp_rec))
+    stamp("gateway")
+
+    # the storage group: slab, meta-log, scrub and the repair planner
+    storage_expected, repair_shapes = phase_storage(blob, path, counts, be,
+                                                    tp_rec)
+    expected.update(storage_expected)
+    stamp("storage")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")
     assert counts == expected, (counts, expected)
 
-    kernels = phase_timings(torch, dev, coder, data, parity)
+    kernels = phase_timings(torch, dev, coder, data, parity,
+                            repair_shapes)
     del data, parity, digests
     kernels.extend(phase_acc_timings(torch, dev))
     stamp("timings")

@@ -15,6 +15,7 @@ import os
 import sys
 from dataclasses import dataclass
 from typing import AsyncIterator, Optional
+from urllib.parse import urlsplit
 
 from chunky_bits_tpu_torch.cluster import (Cluster, ClusterProfile,
                                            FileOrDirectory)
@@ -206,9 +207,11 @@ class ClusterLocation:
             return await cluster.list_files(self.path)
         if self.kind == "stdio":
             return [FileOrDirectory("file", "-")]
-        # the port's locations are local paths (Location.parse refuses the
-        # other schemes)
-        return await FileOrDirectory.list(self.location.target)
+        loc = self.location
+        if loc.is_local():
+            return await FileOrDirectory.list(loc.target)
+        # http and slab locations list as a single file (the path part)
+        return [FileOrDirectory("file", urlsplit(loc.target).path)]
 
     async def list_files_recursive(self, config
                                    ) -> AsyncIterator[FileOrDirectory]:
@@ -235,8 +238,12 @@ class ClusterLocation:
         loc = self.location
         sub_parts = [p for p in new_path.split("/")
                      if p not in ("", ".", "..")]
-        parent_parts = [p for p in loc.target.split("/")
-                        if p not in ("", ".", "..")]
+        if loc.is_local():
+            parent_parts = [p for p in loc.target.split("/")
+                            if p not in ("", ".", "..")]
+        else:
+            parent_parts = [p for p in urlsplit(loc.target).path.split("/")
+                            if p]
         i = 0
         for parent_part in parent_parts:
             if i < len(sub_parts) and parent_part == sub_parts[i]:
@@ -244,9 +251,14 @@ class ClusterLocation:
             else:
                 break
         remaining = sub_parts[i:]
-        new_loc = Location.local(
-            os.path.join(loc.target, *remaining)
-            if remaining else loc.target)
+        if loc.is_local():
+            new_loc = Location.local(
+                os.path.join(loc.target, *remaining)
+                if remaining else loc.target)
+        else:
+            new_loc = loc
+            for part in remaining:
+                new_loc = new_loc.child(part)
         return ClusterLocation(self.kind, location=new_loc)
 
     async def list_cluster_locations(self, config
@@ -323,12 +335,76 @@ class ClusterLocation:
             for chunk in part.data + part.parity
         ]
 
+    async def _get_hashes_snapshot(self, metadata
+                                   ) -> Optional[list[str]]:
+        """Meta-log fast path for the liveness walk: every referenced
+        hash under this location, in display form (``sha256-<hex>`` —
+        both consumers of ``get_hashes_rec`` key on ``str(hash)``, so
+        handing strings skips 10^5 ``AnyHash`` constructions per 10^4
+        refs).  Tries the pure INDEX scan first (``namespace_hashes``:
+        publish-time hash projections, zero ref reads, zero parses),
+        then one ``namespace_snapshot()`` batch read+parse; either way
+        no recursive listing and no per-file metadata round-trips.
+        None when neither surface is available (the caller runs the
+        legacy walk); per-ref parse failures on the snapshot path are
+        surfaced on stderr and skipped, exactly like the legacy walk's
+        per-file failures."""
+        from chunky_bits_tpu_torch.cluster.meta_log import norm_name
+
+        want = norm_name(self.path or "")
+        prefix = want + "/" if want else ""
+
+        def _mine(name: str) -> bool:
+            return not prefix or name == want or name.startswith(prefix)
+
+        index = getattr(metadata, "namespace_hashes", None)
+        if index is not None:
+            try:
+                rows = await index()
+            except ChunkyBitsError:
+                rows = None
+            if rows is not None:
+                return [h for name, hashes in rows if _mine(name)
+                        for h in hashes]
+        try:
+            entries = await metadata.namespace_snapshot()
+        except ChunkyBitsError:
+            # a poisoned batched read: the per-file walk isolates the
+            # bad entry and surfaces it individually
+            return None
+        out: list[str] = []
+        for name, obj in entries:
+            if not _mine(name):
+                continue
+            try:
+                ref = FileReference.from_obj(obj)
+            except ChunkyBitsError as err:
+                print(f"{self.cluster}#{name}: {err}", file=sys.stderr)
+                continue
+            for part in ref.parts:
+                for chunk in part.data + part.parity:
+                    out.append(str(chunk.hash))
+        return out
+
     async def get_hashes_rec(self, config) -> AsyncIterator:
         """One task per file, mpsc fan-in (cluster_location.rs:478-515).
         Every per-file failure is surfaced on stderr — a swallowed error
-        here could misclassify live chunks as garbage downstream.  (The
-        JAX package's meta-log index fast path comes with the meta-log
-        store, ROADMAP Queue A item 6.)"""
+        here could misclassify live chunks as garbage downstream.
+
+        A cluster source over a meta-log metadata store short-circuits
+        through ``_get_hashes_snapshot`` (an index scan, or one batched
+        namespace read — no per-file tasks), which yields hash display
+        STRINGS; the fan-in below is the universal path and yields
+        ``AnyHash``.  Both consumers key on ``str(hash)``, which is
+        identical either way."""
+        if self.kind == "cluster":
+            cluster = await config.get_cluster(self.cluster)
+            if hasattr(cluster.metadata, "namespace_snapshot"):
+                hashes = await self._get_hashes_snapshot(cluster.metadata)
+                if hashes is not None:
+                    for h in hashes:
+                        yield h
+                    return
         queue: asyncio.Queue = asyncio.Queue(50)
         tasks = []
         _DONE = object()

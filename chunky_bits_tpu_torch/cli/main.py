@@ -6,9 +6,10 @@ Mirrors src/bin/chunky-bits/main.rs: global overrides ``--config``,
 port's ``--backend``, and the subcommands (:96-177): cat, config-info,
 cluster-info, cp, decode-shards, encode-shards, file-info,
 find-unused-hashes, get-hashes, http-gateway, ls, migrate, resilver,
-stats and verify.  The JAX package's storage-ops commands parse but
-raise "not yet ported": ``scrub`` and ``meta-compact`` (ROADMAP Queue A
-item 6).
+stats and verify, plus the storage-ops commands of the JAX package:
+``scrub`` (one pass with ``--once``, else continuous) and
+``meta-compact`` (cluster/meta_log.py maintenance and the
+``--from-path-store`` migration into the indexed metadata plane).
 
 Cluster locations are formatted ``cluster-name#path/to/file``; a location
 for the cluster definition may be used instead of a name
@@ -132,8 +133,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-r", "--recursive", action="store_true")
     p.add_argument("target")
 
-    _not_ported(sub, "meta-compact",
-                 "Compact a cluster's meta-log metadata store")
+    p = sub.add_parser(
+        "meta-compact",
+        help="Compact a cluster's meta-log metadata store (reclaim "
+             "dead ref bytes, drop tombstones), optionally migrating "
+             "a file-per-ref tree into the log first")
+    p.add_argument("cluster")
+    p.add_argument(
+        "--from-path-store", metavar="DIR", default=None,
+        help="before compacting, import every ref file under DIR "
+             "(a 'type: path' metadata root) into the cluster's "
+             "meta-log store, byte-for-byte; names already live in "
+             "the log are skipped, so an interrupted migration simply "
+             "re-runs")
 
     p = sub.add_parser(
         "migrate",
@@ -144,8 +156,24 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("resilver", help="Resilver a cluster file")
     p.add_argument("target")
 
-    _not_ported(sub, "scrub",
-                 "Continuously verify and repair cluster chunks")
+    p = sub.add_parser(
+        "scrub",
+        help="Continuously verify cluster chunks against their golden "
+             "digests and repair damaged parts")
+    p.add_argument("cluster")
+    p.add_argument("--once", action="store_true",
+                   help="one full pass, print the report, exit "
+                        "(default: run forever)")
+    p.add_argument("--bytes-per-sec", type=float, default=None,
+                   help="byte-rate bound for scrub reads (default: the "
+                        "cluster's scrub_bytes_per_sec tunable / "
+                        "$CHUNKY_BITS_TORCH_SCRUB_BYTES_PER_SEC; --once "
+                        "runs unthrottled when neither is set)")
+    p.add_argument("--interval", type=float, default=60.0,
+                   help="idle seconds between passes (default 60)")
+    p.add_argument("--no-repair", action="store_true",
+                   help="detect and report only; never resilver")
+
     p = sub.add_parser(
         "stats",
         help="Fetch a running gateway's /stats, /healthz, /scrub/status,"
@@ -161,17 +189,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("target")
 
     return parser
-
-
-#: subcommands of the JAX package whose modules the port has not yet, and
-#: the ROADMAP Queue A item that brings each
-NOT_PORTED = {"scrub": 6, "meta-compact": 6}
-
-
-def _not_ported(sub, name: str, help_: str) -> None:
-    """A subcommand that parses any arguments and raises when run."""
-    p = sub.add_parser(name, help=f"{help_} (not yet ported)")
-    p.add_argument("rest", nargs=argparse.REMAINDER)
 
 
 def _dump(obj, as_json: bool) -> None:
@@ -218,10 +235,6 @@ async def run(args) -> int:
 
 async def _run_command(args, config) -> int:
     cmd = args.command
-    if cmd in NOT_PORTED:
-        raise ChunkyBitsError(
-            f"{cmd} is not yet ported (ROADMAP Queue A item "
-            f"{NOT_PORTED[cmd]})")
     if cmd == "cat":
         destination = ClusterLocation.parse("-")
         for target in args.targets:
@@ -308,6 +321,8 @@ async def _run_command(args, config) -> int:
         else:
             for entry in await target.list_files(config):
                 print(entry)
+    elif cmd == "meta-compact":
+        await meta_compact(config, args)
     elif cmd == "migrate":
         source = ClusterLocation.parse(args.source)
         destination = ClusterLocation.parse(args.destination)
@@ -316,6 +331,37 @@ async def _run_command(args, config) -> int:
         target = ClusterLocation.parse(args.target)
         report = await target.resilver(config)
         print(report.display_full_report())
+    elif cmd == "scrub":
+        from chunky_bits_tpu_torch.cluster.scrub import ScrubDaemon
+
+        cluster = await config.get_cluster(args.cluster)
+        if not args.no_repair:
+            # repairs run on the cluster's erasure backend: resolve it
+            # before the pass, so a device backend without its card
+            # fails here, before anything is read or written (the
+            # daemon itself counts a failed repair and goes on)
+            from chunky_bits_tpu_torch.ops.backend import get_backend
+
+            get_backend(cluster.tunables.backend)
+        daemon = ScrubDaemon(
+            cluster, bytes_per_sec=args.bytes_per_sec,
+            interval_seconds=args.interval, repair=not args.no_repair)
+        if args.once:
+            stats = await daemon.run_once()
+            print(stats)
+        else:
+            # run until ctrl-c; print one stats line per pass so an
+            # operator tailing the log sees progress
+            try:
+                while True:
+                    stats = await daemon.run_once()
+                    print(stats, flush=True)
+                    await asyncio.sleep(max(args.interval, 0.0))
+            # top-level ctrl-c handler of the
+            # scrub command: asyncio.run is tearing this coroutine down
+            # right after — nothing awaits it as a child task
+            except (KeyboardInterrupt, asyncio.CancelledError):
+                pass
     elif cmd == "http-gateway":
         from chunky_bits_tpu_torch.gateway import serve
 
@@ -368,6 +414,76 @@ async def _read_all(reader: aio.AsyncByteReader) -> bytes:
     return b"".join(chunks)
 
 
+async def meta_compact(config, args) -> None:
+    """``meta-compact``: maintenance for the indexed metadata plane
+    (cluster/meta_log.py).  Compacts the cluster's meta-log store —
+    live refs copied into fresh log files, dead bytes reclaimed,
+    tombstones dropped, the journal swapped atomically — and, with
+    ``--from-path-store DIR``, first imports a file-per-ref metadata
+    tree into the log: every ref's bytes are appended EXACTLY as the
+    file holds them (byte identity across stores is the golden-pinned
+    contract), with the index projection extracted from the parsed
+    payload so the scrub/GC fast paths work for migrated refs too.
+    The import is idempotent — names already live in the log are
+    skipped — so an interrupted migration simply re-runs; unparseable
+    files are surfaced on stderr and skipped like every walk in this
+    CLI treats foreign entries."""
+    from chunky_bits_tpu_torch.cluster.meta_log import (
+        MetadataLog,
+        extract_index_meta,
+        norm_name,
+    )
+    from chunky_bits_tpu_torch.file.location import is_publish_temp
+
+    cluster = await config.get_cluster(args.cluster)
+    metadata = cluster.metadata
+    if not isinstance(metadata, MetadataLog):
+        raise ChunkyBitsError(
+            f"cluster {args.cluster!r} metadata is not a meta-log "
+            "store (set `metadata: {type: meta-log, ...}` in the "
+            "cluster config first)")
+    if args.from_path_store:
+        root = args.from_path_store
+        loads = metadata.format.loader()
+
+        def _walk() -> list[tuple[str, str]]:
+            out = []
+            for dirpath, _dirs, files in os.walk(root):
+                for fname in files:
+                    if is_publish_temp(fname):
+                        continue  # a crashed path-store writer's temp
+                    full = os.path.join(dirpath, fname)
+                    out.append(
+                        (norm_name(os.path.relpath(full, root)), full))
+            out.sort()
+            return out
+
+        def _import_one(name: str, full: str) -> bool:
+            if metadata.store.lookup(name) is not None:
+                return False  # already migrated: idempotent re-run
+            with open(full, "rb") as f:
+                data = f.read()
+            try:
+                payload = loads(data)
+            except Exception as err:  # noqa: BLE001 — a foreign file
+                # in the tree must not abort the migration
+                print(f"Skipping unparseable {full}: {err}",
+                      file=sys.stderr)
+                return False
+            hashes, nodes = extract_index_meta(payload)
+            metadata.store.append(name, data,
+                                  hashes=hashes, nodes=nodes)
+            return True
+
+        migrated = 0
+        for name, full in await asyncio.to_thread(_walk):
+            if await asyncio.to_thread(_import_one, name, full):
+                migrated += 1
+        print(f"Migrated {migrated} refs from {root}", file=sys.stderr)
+    report = await metadata.compact()
+    print(json.dumps(report))
+
+
 async def find_unused_hashes(config, args) -> None:
     """GC: list hash files under local dirs, subtract hashes referenced by
     the sources, print/remove the orphans; batched (main.rs:329-435).
@@ -380,10 +496,14 @@ async def find_unused_hashes(config, args) -> None:
     therefore never candidates; the reference runs the same scan with no
     such guard (main.rs:329-435).
 
-    Hash directories are local paths; the JAX package's packed ``slab:``
-    destinations come with ROADMAP Queue A item 6 (``Location.parse``
-    refuses them until then)."""
+    Packed destinations (``slab:/dir``, file/slab.py) take the index
+    fast path: candidates come from one scan of the store's index (no
+    dirent walk), the publish time in each journal line stands in for
+    the file mtime, and removal marks the extent dead for compaction
+    instead of unlinking anything."""
     import time as _time
+
+    from chunky_bits_tpu_torch.file import slab as slab_mod
 
     sources = [ClusterLocation.parse(s) for s in args.source]
     for s in sources:
@@ -391,7 +511,8 @@ async def find_unused_hashes(config, args) -> None:
             raise ChunkyBitsError(f"Unsupported source location: {s}")
     hash_dirs = [ClusterLocation.parse(h) for h in args.hashes]
     for h in hash_dirs:
-        if h.kind != "other" or not h.location.is_local():
+        if h.kind != "other" or not (h.location.is_local()
+                                     or h.location.is_slab()):
             raise ChunkyBitsError(f"Unsupported hashes location: {h}")
     cutoff = _time.time() - args.grace_seconds
 
@@ -399,7 +520,17 @@ async def find_unused_hashes(config, args) -> None:
         """``"old"`` (a GC candidate), ``"fresh"`` (inside the grace
         window — an in-flight write may be about to reference it), or
         ``"gone"`` (vanished mid-scan).  stat runs off-loop like the
-        listing's own metadata calls."""
+        listing's own metadata calls; slab candidates consult the
+        extent's journal-recorded publish time instead of a stat."""
+        if path.startswith("slab:"):
+            root, name = os.path.split(Location.parse(path).target)
+            ext = await asyncio.to_thread(
+                slab_mod.get_store(root).lookup, name)
+            if ext is None:
+                return "gone"
+            if args.grace_seconds <= 0:
+                return "old"
+            return "old" if ext.published < cutoff else "fresh"
         if args.grace_seconds <= 0:
             return "old"
         try:
@@ -438,6 +569,20 @@ async def find_unused_hashes(config, args) -> None:
 
     async def hash_files():
         for hash_dir in hash_dirs:
+            if hash_dir.location.is_slab():
+                # one scan of the packed store's index; the grace check
+                # filters on the extents in hand (each journal line
+                # carries its publish time), and _age_of re-checks just
+                # before a delete
+                root = hash_dir.location.target.rstrip("/")
+                extents = await asyncio.to_thread(
+                    slab_mod.get_store(root).live_extents)
+                for name, ext in extents:
+                    if args.grace_seconds > 0 \
+                            and ext.published >= cutoff:
+                        continue
+                    yield f"slab:{os.path.join(root, name)}"
+                continue
             async for entry in hash_dir.list_files_recursive(config):
                 if not entry.is_file():
                     continue
@@ -486,7 +631,11 @@ async def find_unused_hashes(config, args) -> None:
                           file=sys.stderr)
                     continue
                 print(f"Removing {path}", file=sys.stderr)
-                await Location.local(path).delete()
+                # a slab path marks the extent dead for compaction
+                # (Location.delete's slab branch); plain paths unlink
+                loc = (Location.parse(path) if path.startswith("slab:")
+                       else Location.local(path))
+                await loc.delete()
                 removed = True
             if removed:
                 # in remove mode the stdout line means "collected", so

@@ -11,9 +11,7 @@ write, denying ``.git`` paths (:223-328).  Formats: json, json-pretty
 (default), json-strict, yaml — non-strict variants parse via YAML, a JSON
 superset (:364-414).
 
-The JAX package's indexed ``meta-log`` store (cluster/meta_log.py) is not
-ported yet: naming it, in the YAML or through
-``$CHUNKY_BITS_TORCH_METADATA_KIND``, raises (ROADMAP Queue A item 6).
+The indexed ``type: meta-log`` store lives in cluster/meta_log.py.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
 import yaml
 
@@ -58,6 +56,13 @@ class MetadataFormat:
         if self.name == JSON_PRETTY:
             return json.dumps(payload, indent=2)
         return yaml_dump(payload, sort_keys=False)
+
+    def loader(self):
+        """The raw bytes -> obj parse callable with the format branch
+        hoisted, for batch consumers (the meta-log's
+        ``namespace_snapshot``).  Raises the codec's own errors; batch
+        callers wrap them in SerdeError once per batch."""
+        return json.loads if self.name == JSON_STRICT else yaml_load
 
     def from_bytes(self, data: bytes):
         try:
@@ -357,21 +362,20 @@ class MetadataGit:
                 "path": self.path}
 
 
-MetadataStore = Union[MetadataPath, MetadataGit]
+if TYPE_CHECKING:
+    from chunky_bits_tpu_torch.cluster.meta_log import MetadataLog
 
-
-def _meta_log_not_ported(how: str) -> SerdeError:
-    return SerdeError(
-        f"metadata kind 'meta-log' ({how}) is not yet ported (ROADMAP "
-        f"Queue A item 6)")
+MetadataStore = Union[MetadataPath, MetadataGit, "MetadataLog"]
 
 
 def metadata_from_obj(obj: dict) -> MetadataStore:
-    """Tag-dispatched deserialization (metadata.rs:42-48); ``kind:`` is
-    accepted as an alias for the tag.  ``meta-log``, named in the YAML or
-    through ``$CHUNKY_BITS_TORCH_METADATA_KIND`` (which, as in the JAX
-    package, rebuilds plain ``type: path`` stores without a
-    ``put_script``), raises until the indexed store is ported."""
+    """Tag-dispatched deserialization (metadata.rs:42-48), plus the
+    ``meta-log`` kind (cluster/meta_log.py); ``kind:`` is accepted as an
+    alias for the tag.  ``$CHUNKY_BITS_TORCH_METADATA_KIND=meta-log``
+    (read here, at cluster-config load) rebuilds plain ``type: path``
+    stores as meta-logs over the same root; stores with a
+    ``put_script`` stay ``path`` (the log has no per-write hook), as in
+    the JAX package."""
     if not isinstance(obj, dict) or not ("type" in obj or "kind" in obj):
         raise SerdeError("metadata must be a mapping with a 'type' tag")
     kind = obj["type"] if "type" in obj else obj["kind"]
@@ -379,8 +383,9 @@ def metadata_from_obj(obj: dict) -> MetadataStore:
     if kind == "path":
         if (obj.get("put_script") is None
                 and tunables.metadata_kind() == "meta-log"):
-            raise _meta_log_not_ported(
-                f"${tunables.METADATA_KIND_ENV}")
+            from chunky_bits_tpu_torch.cluster.meta_log import MetadataLog
+
+            return MetadataLog(path=obj["path"], format=fmt)
         return MetadataPath(
             path=obj["path"],
             format=fmt,
@@ -391,5 +396,8 @@ def metadata_from_obj(obj: dict) -> MetadataStore:
     if kind == "git":
         return MetadataGit(path=obj["path"], format=fmt)
     if kind == "meta-log":
-        raise _meta_log_not_ported("the cluster YAML")
+        # lazy import: a plain path store never loads the log machinery
+        from chunky_bits_tpu_torch.cluster.meta_log import MetadataLog
+
+        return MetadataLog(path=obj["path"], format=fmt)
     raise SerdeError(f"unknown metadata type {kind!r}")

@@ -11,8 +11,7 @@ YAML naming the JAX package's backends round-trips; the names resolve in
 
 The knobs of modules that are not ported yet are refused, never dropped:
 a ``slo:`` or ``qos:`` mapping or ``slo_eval_s`` above 0 (ROADMAP Queue
-A item 5b) and ``scrub_bytes_per_sec`` above 0 (item 6) raise
-``SerdeError``.  The gateway's deployment knobs (worker count, sendfile)
+A item 5b) raise ``SerdeError``.  The gateway's deployment knobs (worker count, sendfile)
 are environment-only, as in the JAX package.
 
 The environment accessors are stand-alone copies of the JAX package's,
@@ -92,6 +91,11 @@ READ_RETRIES_ENV = ENV_PREFIX + "READ_RETRIES"
 #: placement decision (the reference pins 100 ms, writer.rs:246)
 STAGGER_SECONDS_ENV = ENV_PREFIX + "STAGGER_SECONDS"
 
+#: continuous-scrub byte-rate bound (cluster/scrub.py): bytes per second
+#: the scrub daemon may read and repair; 0/unset = no daemon.  YAML
+#: ``scrub_bytes_per_sec`` wins
+SCRUB_BYTES_PER_SEC_ENV = ENV_PREFIX + "SCRUB_BYTES_PER_SEC"
+
 #: block-digest tree granularity in bytes (file/chunk.py BlockDigests);
 #: 0/unset = off.  YAML ``repair_block_bytes`` wins
 REPAIR_BLOCK_BYTES_ENV = ENV_PREFIX + "REPAIR_BLOCK_BYTES"
@@ -102,7 +106,7 @@ REPAIR_BLOCK_BYTES_ENV = ENV_PREFIX + "REPAIR_BLOCK_BYTES"
 CODE_ENV = ENV_PREFIX + "CODE"
 
 #: fleet-wide metadata-store kind override for ``type: path`` stores:
-#: ``meta-log`` (not yet ported: it raises, ROADMAP Queue A item 6)
+#: ``meta-log`` (cluster/meta_log.py)
 METADATA_KIND_ENV = ENV_PREFIX + "METADATA_KIND"
 
 _FALSY = ("", "0", "false", "no", "off")
@@ -230,6 +234,13 @@ def read_retries(*, default: int = 1) -> int:
     return _lenient(READ_RETRIES_ENV, int, default, lambda v: v >= 0)
 
 
+def scrub_bytes_per_sec(*, default: float = 0.0) -> float:
+    """Env default of the ``scrub_bytes_per_sec`` tunable (0 = the scrub
+    daemon stays off); malformed or negative reads as off."""
+    return _lenient(SCRUB_BYTES_PER_SEC_ENV, float, default,
+                    lambda v: v > 0)
+
+
 def repair_block_bytes(*, default: int = 0) -> int:
     """Env default of the ``repair_block_bytes`` tunable (0 = no
     block-digest trees)."""
@@ -271,6 +282,7 @@ _NUMERIC = (
     ("host_threads", int, host_threads),
     ("hedge_ms", float, hedge_ms),
     ("read_retries", int, read_retries),
+    ("scrub_bytes_per_sec", float, scrub_bytes_per_sec),
     ("repair_block_bytes", int, repair_block_bytes),
     ("cache_bytes", int, cache_bytes),
     ("trace_slow_ms", float, trace_slow_ms),
@@ -280,8 +292,7 @@ _NUMERIC = (
 #: ROADMAP Queue A item that brings each: refused when set
 _NOT_PORTED = (("slo", "the SLO engine", "5b"),
                ("qos", "multi-tenant QoS", "5b"),
-               ("slo_eval_s", "the SLO engine", "5b"),
-               ("scrub_bytes_per_sec", "the scrub daemon", "6"))
+               ("slo_eval_s", "the SLO engine", "5b"))
 
 
 @dataclass
@@ -300,6 +311,8 @@ class Tunables:
     hedge_ms: float = field(default_factory=hedge_ms)
     #: per-location transient-HTTP retry count
     read_retries: int = field(default_factory=read_retries)
+    #: continuous-scrub byte-rate bound (cluster/scrub.py); 0 = off
+    scrub_bytes_per_sec: float = field(default_factory=scrub_bytes_per_sec)
     #: block-digest tree granularity (file/chunk.py); 0 = off
     repair_block_bytes: int = field(default_factory=repair_block_bytes)
     #: per-loop chunk read-cache budget in bytes; 0 = no cache

@@ -3,11 +3,13 @@
 
 As the reference's ``Location`` (src/file/location.rs:61-68), an address
 is ``Local{path, range}`` or ``Http{url, range}``, a plain string with an
-optional ``(start,len)`` range prefix.  The verbs: read (ranges,
-zero-extension), a streaming reader, a zero-copy page-cache view (local
-only), write and streaming write (conflict policy; local writes publish
-atomically), subfile write (content-addressed children), delete, exists
-and len.  Filesystem calls hop to threads; HTTP goes through one aiohttp
+optional ``(start,len)`` range prefix, plus the JAX package's packed
+``slab:<root>/<name>`` addresses (a chunk inside a ``file/slab.py``
+store).  The verbs: read (ranges, zero-extension), a streaming reader, a
+zero-copy page-cache view (local and slab), write and streaming write
+(conflict policy; local writes publish atomically, slab writes append
+and commit one journal line), subfile write (content-addressed
+children), delete (a slab extent is marked dead), exists and len.  Filesystem calls hop to threads; HTTP goes through one aiohttp
 session per event loop (``LocationContext.http_session``), honouring
 ``https_only`` (plain http and redirects refused) and ``user_agent``.
 The reference's HTTP ``file_len`` is ``todo!()`` (location.rs:394); here
@@ -16,14 +18,14 @@ to the context's location-health scoreboard when a cluster set one
 (cluster/health.py).
 
 Not yet ported, and refused by ``Location.parse`` with a
-``LocationParseError`` that says so: ``slab:`` (the packed slab store)
-and ``sim:`` (the simulator's fabric).
+``LocationParseError`` that says so: ``sim:`` (the simulator's fabric).
 """
 
 from __future__ import annotations
 
 import asyncio
 import errno
+import functools
 import io
 import os
 import re
@@ -49,7 +51,7 @@ IGNORE = "ignore"
 
 #: schemes of the JAX package that the port does not serve yet, with the
 #: ROADMAP Queue A item that brings each
-_NOT_PORTED = (("slab:", "slab", 6), ("sim:", "sim", 8))
+_NOT_PORTED = (("sim:", "sim", 8),)
 
 
 @dataclass(frozen=True)
@@ -284,6 +286,18 @@ async def _atomic_publish(target: str, data) -> None:
         target, lambda path: asyncio.to_thread(_write, path))
 
 
+async def _drain(reader) -> bytes:
+    """A reader's whole body (chunk payloads are bounded by the profile's
+    chunk size)."""
+    chunks: list[bytes] = []
+    while True:
+        data = await reader.read(1 << 20)
+        if not data:
+            break
+        chunks.append(data)
+    return b"".join(chunks)
+
+
 async def _atomic_publish_stream(reader, target: str) -> int:
     return await _publish_atomically(
         target, lambda path: aio.copy_reader_to_file(reader, path))
@@ -361,8 +375,8 @@ class _ProfiledReader:
 class Location:
     """A storage address; value semantics, string serde."""
 
-    kind: str  # "local" | "http"
-    target: str  # filesystem path or full URL
+    kind: str  # "local" | "http" | "slab"
+    target: str  # filesystem path, full URL or slab <root>/<name>
     range: Range = field(default_factory=Range)
 
     # ---- construction / parsing ----
@@ -384,6 +398,16 @@ class Location:
             if not path.startswith("/"):
                 raise LocationParseError("file:// path must be absolute")
             return Location("local", path, rng)
+        if rest.startswith("slab:"):
+            # packed slab store address (file/slab.py): the path names
+            # <store root>/<chunk name>
+            path = rest[len("slab:"):]
+            if not path:
+                raise LocationParseError("empty slab location")
+            if "://" in path.split("/")[0]:
+                raise LocationParseError(
+                    f"invalid slab location: {rest!r}")
+            return Location("slab", path, rng)
         if "://" in rest.split("/")[0]:
             raise LocationParseError(f"invalid location scheme: {rest!r}")
         if not rest:
@@ -395,15 +419,20 @@ class Location:
         return Location("local", str(path), rng or Range())
 
     @staticmethod
+    def slab(path: str, rng: Optional[Range] = None) -> "Location":
+        return Location("slab", str(path), rng or Range())
+
+    @staticmethod
     def http(url: str, rng: Optional[Range] = None) -> "Location":
         if not (url.startswith("http://") or url.startswith("https://")):
             raise LocationParseError(f"not an http url: {url!r}")
         return Location("http", url, rng or Range())
 
     def __str__(self) -> str:
+        prefix = "slab:" if self.is_slab() else ""
         if self.range.is_specified():
-            return f"{self.range}{self.target}"
-        return self.target
+            return f"{self.range}{prefix}{self.target}"
+        return f"{prefix}{self.target}"
 
     def is_http(self) -> bool:
         return self.kind == "http"
@@ -411,8 +440,38 @@ class Location:
     def is_local(self) -> bool:
         return self.kind == "local"
 
+    def is_slab(self) -> bool:
+        return self.kind == "slab"
+
     def with_range(self, rng: Range) -> "Location":
         return replace(self, range=rng)
+
+    # ---- slab addressing (file/slab.py) ----
+
+    def _slab_parts(self) -> tuple[str, str]:
+        """(store root, chunk name) of a slab chunk address."""
+        root, name = os.path.split(self.target.rstrip("/"))
+        if not root or not name:
+            raise LocationError(
+                f"slab location {self.target!r} names a store root, "
+                "not a chunk")
+        return root, name
+
+    def _slab_store(self):
+        from chunky_bits_tpu_torch.file import slab
+
+        return slab.get_store(self._slab_parts()[0])
+
+    def slab_extent(self) -> Optional[tuple[str, int, int]]:
+        """(slab file path, offset, length) of a live packed chunk, or
+        None (not a slab location, or no such chunk).  Synchronous: it may
+        read the store's journal, so callers run it off the loop."""
+        if not self.is_slab():
+            return None
+        try:
+            return self._slab_store().extent_path(self._slab_parts()[1])
+        except (OSError, LocationError):
+            return None
 
     # ---- hierarchy (src/file/location.rs:407-436) ----
 
@@ -506,6 +565,8 @@ class Location:
         rng = self.range
         if self.is_http():
             return await self._open_http_reader(cx)
+        if self.is_slab():
+            return await self._open_slab_reader()
 
         def _open_local():
             f = open(self.target, "rb")
@@ -527,6 +588,44 @@ class Location:
         if rng.extend_zeros:
             return aio.ZeroExtendReader(base, rng.length)
         return aio.TakeReader(base, rng.length)
+
+    async def _open_slab_reader(self) -> aio.AsyncByteReader:
+        """One indexed open and seek into the slab file, bounded by the
+        extent: a short range reads short, as a local file that ends
+        early does."""
+        rng = self.range
+        if rng.start < 0 or (rng.length is not None and rng.length < 0):
+            raise LocationError(f"negative range {rng} on slab location")
+        root, name = self._slab_parts()
+        store = self._slab_store()
+
+        def _open():
+            ext = store.lookup(name)
+            if ext is None:
+                raise FileNotFoundError(
+                    f"no live chunk {name!r} in slab store {root}")
+            f = open(store.slab_path(ext.slab), "rb")
+            try:
+                f.seek(ext.offset + rng.start)
+            except BaseException:
+                f.close()
+                raise
+            return f, ext
+
+        try:
+            # a scrub restart or a hedge loser cancelled mid-open must
+            # not orphan the slab handle
+            f, ext = await aio.open_in_thread(_open, lambda r: r[0].close())
+        except OSError as err:
+            raise LocationError(str(err)) from err
+        base = aio.FileReader(store.slab_path(ext.slab), fileobj=f)
+        avail = max(ext.length - rng.start, 0)
+        if rng.length is None:
+            return aio.TakeReader(base, avail)
+        if rng.extend_zeros:
+            return aio.ZeroExtendReader(
+                aio.TakeReader(base, min(avail, rng.length)), rng.length)
+        return aio.TakeReader(base, min(rng.length, avail))
 
     async def _open_http_reader(self, cx: LocationContext
                                 ) -> aio.AsyncByteReader:
@@ -623,11 +722,26 @@ class Location:
         worker thread runs it there and fuses its own work (hash
         verification) into the same hop."""
         cx = cx or default_context()
-        if (not self.is_local() or cx.profiler is not None
-                or aio.mmap_opted_out()):
+        if (not (self.is_local() or self.is_slab())
+                or cx.profiler is not None or aio.mmap_opted_out()):
             return None
         rng = self.range
         health = cx.health  # thread-safe scoreboard; _map runs off-loop
+        if self.is_slab():
+            try:
+                name = self._slab_parts()[1]
+            except LocationError:
+                return None
+            store = self._slab_store()
+
+            def _map_slab() -> Optional[memoryview]:
+                t0 = _clock.monotonic()
+                view = store.map_view(name, rng.start or 0, rng.length)
+                if view is not None and health is not None:
+                    health.record(self, True, _clock.monotonic() - t0)
+                return view
+
+            return _map_slab
 
         def _map() -> Optional[memoryview]:
             import mmap
@@ -669,6 +783,8 @@ class Location:
         try:
             if cx.on_conflict == IGNORE and await self.file_exists(cx):
                 pass
+            elif self.is_slab():
+                await self._slab_append(data)
             elif self.is_local():
                 try:
                     await _atomic_publish(self.target, data)
@@ -709,7 +825,13 @@ class Location:
         if cx.health is not None:
             cx.health.begin(self)
         try:
-            if self.is_local():
+            if self.is_slab():
+                # the journal commits (name -> extent) in one record, so
+                # the whole body must be known before publication
+                payload = await _drain(counted)
+                await self._slab_append(payload)
+                total = len(payload)
+            elif self.is_local():
                 try:
                     total = await _atomic_publish_stream(counted,
                                                          self.target)
@@ -733,6 +855,15 @@ class Location:
         if cx.profiler is not None:
             cx.profiler.log_write(True, None, self, total, start)
         return total
+
+    async def _slab_append(self, data) -> None:
+        """Packed publication: slab append and journal commit
+        (file/slab.py), the slab's counterpart of the rename above."""
+        name = self._slab_parts()[1]
+        try:
+            await asyncio.to_thread(self._slab_store().append, name, data)
+        except OSError as err:
+            raise LocationError(str(err)) from err
 
     async def _http_put_stream(self, reader: aio.AsyncByteReader,
                                cx: LocationContext) -> int:
@@ -786,8 +917,15 @@ class Location:
         if self.is_http():
             await self._http_send("delete", cx or default_context())
             return
+        if self.is_slab():
+            # GC of a packed chunk marks its extent dead for
+            # SlabStore.compact; the slab file is never punched
+            unlink = functools.partial(self._slab_store().mark_dead,
+                                       self._slab_parts()[1])
+        else:
+            unlink = functools.partial(_fsio.unlink, self.target)
         try:
-            await asyncio.to_thread(_fsio.unlink, self.target)
+            await asyncio.to_thread(unlink)
         except OSError as err:
             raise LocationError(str(err)) from err
 
@@ -795,9 +933,19 @@ class Location:
         if self.is_http():
             resp = await self._http_send("head", cx or default_context())
             return resp.status < 400
+        if self.is_slab():
+            ext = await asyncio.to_thread(self._slab_store().lookup,
+                                          self._slab_parts()[1])
+            return ext is not None
         return await asyncio.to_thread(os.path.exists, self.target)
 
     async def file_len(self, cx: Optional[LocationContext] = None) -> int:
+        if self.is_slab():
+            name = self._slab_parts()[1]
+            ext = await asyncio.to_thread(self._slab_store().lookup, name)
+            if ext is None:
+                raise LocationError(f"no live chunk {name!r} in slab store")
+            return ext.length
         if self.is_http():
             resp = await self._http_send("head", cx or default_context())
             if resp.status >= 400:

@@ -10,10 +10,10 @@ and every ``log_request``/``log_read``/``log_write`` also records into
 the metrics registry and, when a trace is active, onto the trace.  The
 report also carries the counters of the host pipelines and the table of
 the location-health scoreboards attached to it, and of the read caches
-(``file/chunk_cache.py``).  Scrub daemons attach the same way; the port
-has none yet (ROADMAP Queue A item 6), so the gateway attaches none and
-its ``/scrub/status`` answers ``enabled: false``.  Not ported yet: the
-SLO and QoS attach points, which come with their modules (item 5b).
+(``file/chunk_cache.py``), and the ``Scrub<...>`` stanza of each scrub
+daemon attached (``attach_scrub``, cluster/scrub.py).  Not ported yet:
+the SLO and QoS attach points, which come with their modules (ROADMAP
+Queue A item 5b).
 """
 
 from __future__ import annotations

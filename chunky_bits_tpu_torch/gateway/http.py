@@ -27,10 +27,13 @@ Beyond the reference, as in the JAX package:
 - **Access log and observability.**  One structured line per request
   through the app's ``Profiler.log_request``; ``/metrics`` (Prometheus
   text; the fleet view under a supervisor), ``/stats``, ``/healthz`` and
-  ``/debug/traces``.  ``/scrub/status`` and ``/alerts`` answer
-  ``enabled: false``, as the JAX gateway does with scrub and the SLO
-  engine off: the port has neither yet (ROADMAP Queue A items 6 and 5b),
-  nor the QoS scheduler (item 5b).
+  ``/debug/traces``.  ``/scrub/status`` answers the scrub daemon's
+  counters (``enabled: true``) when single-process ``serve`` runs one
+  (the cluster's ``scrub_bytes_per_sec`` tunable above 0,
+  cluster/scrub.py), else ``enabled: false``; a multi-worker fleet runs
+  none, as in the JAX package.  ``/alerts`` answers ``enabled: false``:
+  the SLO engine and the QoS scheduler are not ported yet (ROADMAP Queue
+  A item 5b).
 
 Every PUT encodes through the cluster's shared encode batcher, and every
 GET that reassembles rebuilds through the per-loop reconstruct batcher,
@@ -444,23 +447,38 @@ def make_app(cluster: Cluster,
     async def _verify_local_chunk(chunk, location, chunksize: int
                                   ) -> Optional[tuple[str, int]]:
         """(file path, byte offset) to stream ``chunk``'s verified bytes
-        from, or None when this replica cannot serve the zero-copy path
+        from (a whole local chunk file, or a live extent inside a packed
+        slab), or None when this replica cannot serve the zero-copy path
         (wrong size, corrupt, missing).  A full digest on the host
-        pipeline at first sight, the memo afterwards."""
-        path = location.target
-        try:
-            st = await asyncio.to_thread(os.stat, path)
-        except OSError:
-            return None
-        if st.st_size != chunksize:
-            return None
-        key = (path, 0, chunksize)
-        token = (st.st_size, st.st_mtime_ns)
-        if verified_memo.get(key) == token:
-            return (path, 0)
+        pipeline at first sight, the memo afterwards.  A slab extent's
+        memo key binds the chunk digest: slab bytes are write-once, but
+        a compaction of an emptied store can reuse an extent address."""
+        if location.is_slab():
+            ext = await asyncio.to_thread(location.slab_extent)
+            if ext is None:
+                return None
+            path, base, ext_len = ext
+            if ext_len != chunksize:
+                return None
+            key = (path, base, ext_len, chunk.hash.value.digest)
+            if verified_memo.get(key) == "extent":
+                return (path, base)
+            token: object = "extent"
+        else:
+            path, base = location.target, 0
+            try:
+                st = await asyncio.to_thread(os.stat, path)
+            except OSError:
+                return None
+            if st.st_size != chunksize:
+                return None
+            key = (path, 0, chunksize)
+            token = (st.st_size, st.st_mtime_ns)
+            if verified_memo.get(key) == token:
+                return (path, 0)
         try:
             digest = await pipe.run(
-                "verify", lambda: _sha256_extent(path, 0, chunksize),
+                "verify", lambda: _sha256_extent(path, base, chunksize),
                 nbytes=chunksize)
         except OSError:
             return None
@@ -470,7 +488,7 @@ def make_app(cluster: Cluster,
             health.record(location, False)
             return None
         _memo_insert(key, token)
-        return (path, 0)
+        return (path, base)
 
     async def _sendfile_response(request: web.Request, status: int,
                                  headers: dict, path: str,
@@ -663,7 +681,8 @@ def make_app(cluster: Cluster,
                             and cache.contains(key))
                 if not in_cache:
                     for location in chunk.locations:
-                        if not location.is_local() \
+                        if not (location.is_local()
+                                or location.is_slab()) \
                                 or location.range.is_specified():
                             continue
                         served = await _verify_local_chunk(
@@ -974,18 +993,28 @@ async def serve(cluster: Cluster, host: str = "127.0.0.1",
             on_ready=on_ready)
         return
 
-    # no scrub daemon rides the loop: the port has none yet (ROADMAP
-    # Queue A item 6), as the JAX gateway builds none with scrub off
+    # continuous scrub rides the serving loop when the cluster's
+    # `scrub_bytes_per_sec` tunable asks for it (cluster/scrub.py; off =
+    # no daemon object).  Single-process serve only: a pre-forked fleet
+    # would run N identical namespace walks, so its workers answer
+    # /scrub/status with enabled: false
+    scrub = None
+    if not reuse_port:
+        from chunky_bits_tpu_torch.cluster.scrub import maybe_build
+
+        scrub = maybe_build(cluster)
     runner = web.AppRunner(
         make_app(cluster, max_put_bytes=max_put_bytes,
                  max_concurrent_puts=max_concurrent_puts,
                  min_put_rate=min_put_rate,
                  max_concurrent_gets=max_concurrent_gets,
-                 metrics_spool=metrics_spool,
+                 scrub=scrub, metrics_spool=metrics_spool,
                  health_state=health_state))
     await runner.setup()
     site = web.TCPSite(runner, host, port, reuse_port=reuse_port)
     await site.start()
+    if scrub is not None:
+        scrub.start()
     bound_port = port
     server = getattr(site, "_server", None)
     if server is not None and server.sockets:
@@ -1001,4 +1030,6 @@ async def serve(cluster: Cluster, host: str = "127.0.0.1",
     except (KeyboardInterrupt, asyncio.CancelledError):
         pass
     finally:
+        if scrub is not None:
+            await scrub.stop()
         await runner.cleanup()

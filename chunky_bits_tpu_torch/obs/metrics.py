@@ -24,8 +24,7 @@ Label values come from closed sets (HTTP method, status class, serving
 source, pipeline stage, configured node key), never from request paths
 or other client strings; a family refuses to grow past
 :data:`MAX_LABEL_SETS` label sets.  The source families of modules the
-port does not have yet (scrub, repair, QoS, the XOR schedule) come with
-them.
+port does not have yet (QoS, the XOR schedule) come with them.
 """
 
 from __future__ import annotations
@@ -248,7 +247,7 @@ class MetricsRegistry:
 
     def register_source(self, kind: str, obj: object) -> None:
         """Weakly register a stat source (``kind`` one of "cache",
-        "pipeline", "health"); its ``stats()`` is folded into every
+        "pipeline", "health", "repair", "scrub"); its ``stats()`` is folded into every
         snapshot while the object lives;
         registration never extends the object's lifetime, so sources
         drop out with their owners."""
@@ -536,6 +535,68 @@ def _source_families(reg: MetricsRegistry) -> list[dict]:
             "breaker state (0 closed, 1 half-open, 2 open)", [
                 _scalar(breaker_rank.get(row["breaker"], 2), node=node)
                 for node, row in sorted(nodes.items())]))
+
+    repairs = [r.stats().to_obj() for r in reg.sources("repair")]
+    if repairs:
+        # plan kinds, helper-read sources and erasure codes are closed
+        # label sets: copy = 1x from a healthy replica, decode
+        # = ranged reads off d helpers, msr = pm-msr β-projection
+        # regeneration, fallback = handed to full resilver; codes come
+        # from cluster.repair.CODES
+        by_code: dict[str, dict] = {}
+        for r in repairs:
+            for code, counters in (r.get("by_code") or {}).items():
+                agg = by_code.setdefault(code, {})
+                for key, value in counters.items():
+                    agg[key] = agg.get(key, 0.0) + float(value or 0)
+        codes = sorted(by_code)
+        fams.append(_fam("cb_repair_plans_total", COUNTER,
+                         "repair plans executed by kind and code", [
+                             _scalar(by_code[c].get(f"plans_{kind}", 0),
+                                     kind=kind, code=c)
+                             for c in codes
+                             for kind in ("copy", "decode", "msr",
+                                          "fallback")]))
+        fams.append(_fam("cb_repair_helper_bytes_total", COUNTER,
+                         "bytes read off helpers for repair by source "
+                         "and code", [
+                             _scalar(by_code[c].get(
+                                 f"helper_bytes_{src}", 0),
+                                 source=src, code=c)
+                             for c in codes
+                             for src in ("replica", "decode", "msr")]))
+        for key, help_ in (
+                ("bytes_localized",
+                 "victim bytes re-read to localize damage"),
+                ("bytes_rebuilt", "damaged bytes rebuilt in place"),
+                ("bytes_written", "repair bytes written to victims"),
+                ("ranges_rebuilt", "damaged ranges rebuilt"),
+                ("verify_failures",
+                 "rebuilt chunks failing the end-to-end hash gate")):
+            fams.append(_fam(f"cb_repair_{key}_total", COUNTER,
+                             f"repair planner: {help_}",
+                             [_scalar(by_code[c].get(key, 0), code=c)
+                              for c in codes]))
+
+    scrubs = [s.stats().to_obj() for s in reg.sources("scrub")]
+    if scrubs:
+        s = _sum_rows(scrubs, ("passes", "files_scanned",
+                               "chunks_scanned", "bytes_verified",
+                               "corrupt", "unavailable", "repaired",
+                               "repair_failures"))
+        for key in ("passes", "files_scanned", "chunks_scanned",
+                    "bytes_verified", "corrupt", "unavailable",
+                    "repaired", "repair_failures"):
+            fams.append(_fam(f"cb_scrub_{key}_total", COUNTER,
+                             f"scrub {key.replace('_', ' ')}",
+                             [_scalar(s[key])]))
+        fams.append(_fam("cb_scrub_running", GAUGE,
+                         "scrub daemon running", [_scalar(
+                             sum(1 for x in scrubs if x["running"]))]))
+        fams.append(_fam("cb_scrub_rate_bytes_per_sec", GAUGE,
+                         "scrub byte-rate bound", [_scalar(
+                             sum(x["rate_bytes_per_sec"]
+                                 for x in scrubs))]))
 
     return fams
 

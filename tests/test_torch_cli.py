@@ -9,22 +9,26 @@ other's.  Every call names a config file of its own, so nothing reads
 ``/etc/chunky-bits.yaml``.
 """
 
+import asyncio
 import hashlib
 import io
 import json
 import os
+import random
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 import yaml
 
 from chunky_bits_tpu.cli.main import main as jax_main
 from chunky_bits_tpu_torch.cli.cluster_location import ClusterLocation
-from chunky_bits_tpu_torch.cli.main import NOT_PORTED, build_parser
+from chunky_bits_tpu_torch.cli.main import build_parser
 from chunky_bits_tpu_torch.cli.main import main as port_main
-from tests.test_torch_file import bounded
+from chunky_bits_tpu_torch.utils import aio
+from tests.test_torch_file import bounded, run
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -247,7 +251,10 @@ def test_cluster_info_and_config_info(tmp_path):
     (("cat", "{conf}#does-not-exist"), "No such file"),
     (("cat", "nonexistent-cluster#x"), "not defined"),
     (("resilver", "/tmp/just-a-file"), "only supported on cluster"),
-    (("cp", "-", "slab:/tmp/x"), "slab locations are not yet ported"),
+    # slab destinations are ported: the case keeps its id and now checks
+    # that a slab address naming a store root, not a chunk, is refused
+    pytest.param(("cp", "-", "slab:x"), "names a store root, not a chunk",
+                 id="argv3-slab locations are not yet ported"),
     # http destinations are ported (a cp there would dial the host): the
     # case keeps its id and now checks the sim: refusal
     pytest.param(("cp", "-", "sim:fabric/n0/x"),
@@ -261,20 +268,21 @@ def test_error_paths(cluster_yaml, tmp_path, argv, message):
 
 
 @pytest.mark.parametrize("command",
-                         sorted([*NOT_PORTED, "http-gateway", "stats"]))
+                         ["http-gateway", "meta-compact", "scrub", "stats"])
 def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
-    """``scrub`` and ``meta-compact`` raise, naming their item;
-    ``http-gateway`` and ``stats`` are ported and parse the JAX
-    package's arguments with its defaults."""
-    if command in NOT_PORTED:
-        _out, err = cli(tmp_path, command, str(cluster_yaml), "--once",
-                        rc=1)
-        assert f"{command} is not yet ported (ROADMAP Queue A item " \
-            f"{NOT_PORTED[command]})" in err
-        return
+    """Every one of these commands is ported now, and parses the JAX
+    package's arguments with its defaults.  ``stats`` on an unreachable
+    gateway and ``meta-compact`` on a path metadata store fail loudly;
+    ``scrub --once`` on a healthy cluster scans it and repairs
+    nothing."""
     from chunky_bits_tpu.cli.main import build_parser as jax_parser
 
     argv = {"http-gateway": [command, str(cluster_yaml)],
+            "meta-compact": [command, str(cluster_yaml),
+                             "--from-path-store", "d"],
+            "scrub": [command, str(cluster_yaml), "--once",
+                      "--bytes-per-sec", "5", "--interval", "2",
+                      "--no-repair"],
             "stats": [command, "--json", "127.0.0.1:1"]}[command]
     ours = vars(build_parser().parse_args(argv))
     theirs = vars(jax_parser().parse_args(argv))
@@ -285,20 +293,35 @@ def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
         # an unreachable gateway fails loudly, not with "not yet ported"
         _out, err = cli(tmp_path, *argv, rc=1)
         assert "cannot reach gateway" in err
+    elif command == "meta-compact":
+        _out, err = cli(tmp_path, command, str(cluster_yaml), rc=1)
+        assert "is not a meta-log store" in err
+    elif command == "scrub":
+        cli(tmp_path, "cp", "-", f"{cluster_yaml}#f", stdin=b"x" * 5000)
+        out, _err = cli(tmp_path, command, str(cluster_yaml), "--once")
+        assert out.startswith(b"Scrub<scanned=1f/") and b"corrupt=0" in out
 
 
 @pytest.mark.parametrize("tunable,item", [
     ({"slo": {"fast_s": 60}}, "5b"), ({"qos": {"enabled": True}}, "5b"),
-    ({"slo_eval_s": 15}, "5b"), ({"scrub_bytes_per_sec": 1e6}, "6")])
+    ({"slo_eval_s": 15}, "5b"),
+    # the scrub daemon is ported: the case keeps its id and now checks
+    # that such a cluster loads and keeps the tunable
+    pytest.param({"scrub_bytes_per_sec": 1e6}, None, id="tunable3-6")])
 def test_unported_serving_tunables_still_refuse(tmp_path, tunable, item):
-    """A cluster YAML naming the SLO engine, QoS or the scrub daemon
-    fails every command that loads it, naming the item that brings it;
-    the gateway does not serve such a cluster either."""
+    """A cluster YAML naming the SLO engine or QoS fails every command
+    that loads it, naming the item that brings it; the gateway does not
+    serve such a cluster either."""
     conf = make_cluster_yaml(tmp_path)
     spec = yaml.safe_load(conf.read_text())
     spec["tunables"] = tunable
     conf.write_text(yaml.safe_dump(spec))
     key = next(iter(tunable))
+    if item is None:
+        cli(tmp_path, "ls", f"{conf}#.")
+        out, _err = cli(tmp_path, "cluster-info", "--json", str(conf))
+        assert json.loads(out)["tunables"][key] == tunable[key]
+        return
     for argv in (("ls", f"{conf}#."),
                  ("http-gateway", str(conf), "-l", "127.0.0.1:0")):
         _out, err = cli(tmp_path, *argv, rc=1)
@@ -464,3 +487,283 @@ def test_python_m_cli_cp_on_the_default_backend_refuses_without_a_card(
     assert not any(os.listdir(tmp_path / f"cluster.yaml.disk{i}")
                    for i in range(5))
     assert not os.listdir(tmp_path / "cluster.yaml.meta")
+
+
+# ---- storage ops: slab destinations, meta-log metadata, scrub, GC ----
+
+def make_storage_yaml(root, backend="torch", name="storage.yaml"):
+    """3 ``slab:`` + 2 ``path`` destinations, ``meta-log`` metadata,
+    4 KiB digest blocks, 16 KiB chunks."""
+    dests = []
+    for i in range(5):
+        d = root / f"{name}.disk{i}"
+        d.mkdir(parents=True)
+        dests.append(f"slab:{d}" if i < 3 else str(d))
+    spec = {
+        "destinations": [{"location": x} for x in dests],
+        "metadata": {"type": "meta-log", "format": "yaml",
+                     "path": str(root / f"{name}.meta")},
+        "profiles": {"default": {"data": 3, "parity": 2,
+                                 "chunk_size": 14}},
+        "tunables": {"backend": backend, "repair_block_bytes": 4096},
+    }
+    path = root / name
+    path.write_text(yaml.safe_dump(spec))
+    return path, dests
+
+
+def chunk_location(tmp_path, conf, name, ci):
+    from chunky_bits_tpu_torch.file.location import Location
+
+    part = ref_obj(tmp_path, conf, name)["parts"][0]
+    return Location.parse((part["data"] + part["parity"])[ci]
+                          ["locations"][0])
+
+
+def flip(location, offset):
+    path, base = ((location.slab_extent()[:2]) if location.is_slab()
+                  else (location.target, 0))
+    with open(path, "r+b") as f:
+        f.seek(base + offset)
+        byte = f.read(1)
+        f.seek(base + offset)
+        f.write(bytes([byte[0] ^ 0xFF]))
+
+
+def storage_damage(tmp_path, conf):
+    """Flip a byte in chunk 1 of ``a``'s first part; drop chunk 4 of
+    ``dir/b``'s first part."""
+    flip(chunk_location(tmp_path, conf, "a", 1), 5000)
+    run(chunk_location(tmp_path, conf, "dir/b", 4).delete())
+
+
+def test_storage_ops_end_to_end(tmp_path):
+    """cp onto slab + path destinations with meta-log metadata, damage,
+    ``scrub --once`` (one decode plan a damaged chunk), ``verify`` Valid,
+    ``cat`` byte-identical, ``meta-compact``, ``ls`` through the
+    meta-log, and ``find-unused-hashes`` over the slab and path roots:
+    no live chunk listed; a deleted object's chunks are collected."""
+    conf, dests = make_storage_yaml(tmp_path)
+    a, b = payload(3 * 16384 + 100, 1), payload(2 * 16384, 2)
+    cli(tmp_path, "cp", "-", f"{conf}#a", stdin=a)
+    cli(tmp_path, "cp", "-", f"{conf}#dir/b", stdin=b)
+    assert b"file\tValid" in cli(tmp_path, "verify", f"{conf}#a")[0]
+    storage_damage(tmp_path, conf)
+    assert b"file\tValid" not in cli(tmp_path, "verify", f"{conf}#a")[0]
+    out = cli(tmp_path, "scrub", "--once", str(conf))[0].decode()
+    assert "corrupt=1 repaired=2 plans=0c/2d/0m/0f" in out, out
+    for name, data in (("a", a), ("dir/b", b)):
+        report = cli(tmp_path, "verify", f"{conf}#{name}")[0]
+        assert report.startswith(b"file\tValid"), report
+        assert b"Invalid" not in report and b"Unavailable" not in report
+        assert cli(tmp_path, "cat", f"{conf}#{name}")[0] == data
+    report = json.loads(cli(tmp_path, "meta-compact", str(conf))[0])
+    assert report["live_refs"] == 2
+    assert cli(tmp_path, "ls", "-r", f"{conf}#.")[0].decode().split() == \
+        [".", "a", "dir", "dir/b"]
+    roots = dests
+    gc = ["find-unused-hashes", "--grace-seconds", "0", f"{conf}#."]
+    assert cli(tmp_path, *gc, "--", *roots)[0] == b""
+    # a tombstoned object's chunks are orphans: listed, then collected
+    from chunky_bits_tpu_torch.cluster.meta_log import get_store
+
+    doomed = [f"sha256-{c['sha256']}" for p in
+              ref_obj(tmp_path, conf, "dir/b")["parts"]
+              for c in p["data"] + p["parity"]]
+    get_store(str(tmp_path / "storage.yaml.meta")).tombstone("dir/b")
+    assert sorted(cli(tmp_path, *gc, "--", *roots)[0].decode().split()) \
+        == sorted(doomed)
+    removed = cli(tmp_path, *gc[:1], "-r", *gc[1:], "--", *roots)[0]
+    assert sorted(removed.decode().split()) == sorted(doomed)
+    assert cli(tmp_path, *gc, "--", *roots)[0] == b""
+    assert cli(tmp_path, "cat", f"{conf}#a")[0] == a
+
+
+def test_scrub_on_cuda_without_a_card_writes_nothing(tmp_path):
+    """The same damaged cluster on ``backend: cuda``: ``scrub --once``
+    exits non-zero naming CUDA and leaves every store byte as it was (no
+    CPU fallback); ``--no-repair`` still reports the damage."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    conf, dests = make_storage_yaml(tmp_path)
+    cli(tmp_path, "cp", "-", f"{conf}#a", stdin=payload(3 * 16384, 3))
+    flip(chunk_location(tmp_path, conf, "a", 0), 7)
+    conf.write_text(conf.read_text().replace("backend: torch",
+                                             "backend: cuda"))
+
+    def snapshot():
+        out = {}
+        for dirpath, _dirs, files in os.walk(tmp_path):
+            for f in files:
+                with open(os.path.join(dirpath, f), "rb") as fh:
+                    out[os.path.join(dirpath, f)] = fh.read()
+        return out
+
+    before = snapshot()
+    _out, err = cli(tmp_path, "scrub", "--once", str(conf), rc=1)
+    assert "CUDA is not available" in err, err
+    assert snapshot() == before
+    out = cli(tmp_path, "scrub", "--once", "--no-repair", str(conf))[0]
+    assert b"corrupt=1 repaired=0" in out
+
+
+@pytest.mark.parametrize("compactor", ["jax", "port"])
+def test_meta_compact_output_opens_in_the_other_package(tmp_path,
+                                                        compactor):
+    """A path-store cluster migrated into a meta-log by one package's
+    ``meta-compact --from-path-store`` (then compacted again after a
+    deletion) opens in the other: listings and reads equal."""
+    from chunky_bits_tpu.cluster.meta_log import get_store as jax_store
+
+    conf = make_cluster_yaml(tmp_path, d=3, p=2, chunk_size=12)
+    blobs = {f"d/o{i}": payload(5000 + 999 * i, 20 + i) for i in range(3)}
+    for name, data in blobs.items():
+        cli(tmp_path, "cp", "-", f"{conf}#{name}", stdin=data)
+    spec = yaml.safe_load(conf.read_text())
+    old_meta = spec["metadata"]["path"]
+    spec["metadata"] = {"type": "meta-log", "format": "yaml",
+                        "path": str(tmp_path / "log")}
+    conf_log = tmp_path / "log.yaml"
+    conf_log.write_text(yaml.safe_dump(spec))
+    clis = {"jax": lambda *a, **k: call(jax_main, tmp_path, "--backend",
+                                        "numpy", *a, **k),
+            "port": lambda *a, **k: cli(tmp_path, *a, **k)}
+    reader = "port" if compactor == "jax" else "jax"
+    report = json.loads(clis[compactor](
+        "meta-compact", str(conf_log), "--from-path-store", old_meta)[0])
+    assert report["live_refs"] == 3
+    jax_store(str(tmp_path / "log")).tombstone("d/o1")
+    del blobs["d/o1"]
+    assert json.loads(clis[compactor]("meta-compact", str(conf_log))[0]) \
+        ["live_refs"] == 2
+    listing = {side: clis[side]("ls", "-r", f"{conf_log}#.")[0]
+               for side in clis}
+    assert listing["jax"] == listing["port"]
+    for name, data in blobs.items():
+        assert clis[reader]("cat", f"{conf_log}#{name}")[0] == data
+        with open(os.path.join(old_meta, name), "rb") as f:
+            assert f.read() == run_store_read(tmp_path / "log", name)
+
+
+def run_store_read(root, name):
+    from chunky_bits_tpu_torch.cluster.meta_log import MetaLogStore
+
+    return MetaLogStore(str(root)).read_bytes(name)
+
+
+# ---- GC against concurrent ingest (tests/test_gc_race.py) ----
+
+def gc_cluster(tmp_path):
+    conf = make_cluster_yaml(tmp_path, d=3, p=2, chunk_size=16)
+    disks = [str(tmp_path / f"cluster.yaml.disk{i}") for i in range(5)]
+    return conf, disks
+
+
+def gc_args(conf, disks, **over):
+    from types import SimpleNamespace
+
+    base = dict(source=[f"{conf}#."], hashes=disks, batch_size=2,
+                remove=True, grace_seconds=30.0)
+    base.update(over)
+    return SimpleNamespace(**base)
+
+
+def plant_orphan(disks, i, age=3600):
+    data = b"orphan-%d" % i
+    path = os.path.join(disks[i % len(disks)],
+                        "sha256-" + hashlib.sha256(data).hexdigest())
+    with open(path, "wb") as f:
+        f.write(data)
+    if age:
+        old = time.time() - age
+        os.utime(path, (old, old))
+    return path
+
+
+def test_gc_never_eats_inflight_writes(tmp_path):
+    from chunky_bits_tpu_torch.cli.config import Config
+    from chunky_bits_tpu_torch.cli.main import find_unused_hashes
+
+    conf, disks = gc_cluster(tmp_path)
+    rng = random.Random(1234)
+    payloads = {f"f{i}": rng.randbytes(rng.randrange(2000, 10000))
+                for i in range(6)}
+    orphans = [plant_orphan(disks, i) for i in range(3)]
+
+    async def main():
+        config = await Config.load_or_default(str(tmp_path / "config.yaml"))
+        cluster = await config.get_cluster(str(conf))
+
+        async def writer():
+            for name, data in payloads.items():
+                await cluster.write_file(name, aio.BytesReader(data),
+                                         cluster.get_profile(None))
+                await asyncio.sleep(0)
+
+        async def gc_loop():
+            for _ in range(4):
+                await find_unused_hashes(config, gc_args(conf, disks))
+                await asyncio.sleep(0)
+
+        await asyncio.gather(writer(), gc_loop())
+        await find_unused_hashes(config, gc_args(conf, disks))
+        for name, data in payloads.items():
+            got = await cluster.file_read_builder(
+                await cluster.get_file_ref(name)).read_all()
+            assert got == data, name
+
+    run(main())
+    assert not any(os.path.exists(p) for p in orphans)
+
+
+def test_gc_grace_window_and_delete_time_recheck(tmp_path, monkeypatch):
+    """A fresh unreferenced chunk survives a --remove pass and is
+    collected with the window off; a listed orphan re-written before its
+    delete is spared; a crashed writer's old temp is reaped, a live one
+    and unknown names are left alone."""
+    from chunky_bits_tpu_torch.cli import main as cli_main
+    from chunky_bits_tpu_torch.cli.config import Config
+    from chunky_bits_tpu_torch.file.location import (is_publish_temp,
+                                                     publish_temp_name)
+
+    conf, disks = gc_cluster(tmp_path)
+    fresh = plant_orphan(disks, 0, age=0)
+    rewritten = plant_orphan(disks, 1)
+    stale = os.path.join(disks[2], "sha256-" + "a" * 64 + ".tmp.1.deadbeef")
+    live = os.path.join(disks[3], "sha256-" + "b" * 64 + ".tmp.2.cafebabe")
+    unknown = os.path.join(disks[4], "notes.txt")
+    for p in (stale, live, unknown):
+        with open(p, "wb") as f:
+            f.write(b"x")
+    old = time.time() - 3600
+    os.utime(stale, (old, old))
+    os.utime(unknown, (old, old))
+    real_stat = os.stat
+    bumped = []
+
+    def stat_with_rewrite(p, *a, **kw):
+        st = real_stat(p, *a, **kw)
+        if p == rewritten and not bumped:
+            bumped.append(True)
+            os.utime(rewritten, None)
+        return st
+
+    async def main():
+        config = await Config.load_or_default(str(tmp_path / "config.yaml"))
+        monkeypatch.setattr(cli_main.os, "stat", stat_with_rewrite)
+        await cli_main.find_unused_hashes(config, gc_args(conf, disks))
+        monkeypatch.setattr(cli_main.os, "stat", real_stat)
+        assert os.path.exists(fresh) and os.path.exists(rewritten)
+        assert not os.path.exists(stale)
+        assert os.path.exists(live) and os.path.exists(unknown)
+        await cli_main.find_unused_hashes(
+            config, gc_args(conf, disks, grace_seconds=0.0))
+
+    run(main())
+    assert not os.path.exists(fresh) and os.path.exists(unknown)
+    name = publish_temp_name("/x/sha256-" + "a" * 64)
+    assert is_publish_temp(os.path.basename(name))
+    assert not is_publish_temp("sha256-" + "a" * 64)
+    assert not is_publish_temp("notes.txt")

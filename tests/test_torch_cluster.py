@@ -122,18 +122,18 @@ def broken_node(tmp_path) -> str:
     ("zones", "http"), ("tpu", "slab")])
 def test_cluster_from_yaml_examples(name, refused):
     """Every example parses; ``refused`` names the scheme an example uses
-    beyond ``path``.  ``http`` is ported: those examples load with http
-    destinations.  ``slab`` is not yet, and fails loudly at load."""
+    beyond ``path``.  ``http`` and ``slab`` are ported: those examples
+    load with their destinations, serialized as the JAX package does."""
+    from chunky_bits_tpu.cluster import Cluster as JaxCluster
+
     obj = yaml.safe_load((EXAMPLES / f"{name}.yaml").read_text())
-    if refused == "slab":
-        with pytest.raises(LocationParseError,
-                           match=f"{refused} locations are not yet ported"):
-            Cluster.from_obj(obj)
-        return
     cluster = Cluster.from_obj(obj)
     assert cluster.get_profile() is not None
-    if refused == "http":
-        assert "http" in yaml.safe_dump(cluster.to_obj())
+    if refused is not None:
+        text = yaml.safe_dump(cluster.to_obj()["destinations"])
+        assert f"{refused}:" in text
+        assert text == yaml.safe_dump(
+            JaxCluster.from_obj(obj).to_obj()["destinations"])
 
 
 def test_zone_map_flattening():
@@ -411,10 +411,23 @@ def test_metadata_put_script(tmp_path, script, fail, error):
     ({"type": "path", "path": "m"}, "meta-log"),
 ])
 def test_meta_log_is_not_yet_ported(monkeypatch, obj, env):
+    """The meta-log store is ported: the YAML tag, its ``kind:`` alias
+    and ``$CHUNKY_BITS_TORCH_METADATA_KIND`` build it (the JAX variable
+    does not)."""
+    from chunky_bits_tpu_torch.cluster.meta_log import MetadataLog
+
+    monkeypatch.setenv("CHUNKY_BITS_TPU_METADATA_KIND", "meta-log")
     if env:
         monkeypatch.setenv("CHUNKY_BITS_TORCH_METADATA_KIND", env)
-    with pytest.raises(SerdeError, match="not yet ported .*item 6"):
-        metadata_from_obj(obj)
+        plain = dict(obj)
+    else:
+        plain = {"type": "path", "path": "m"}
+    store = metadata_from_obj(obj)
+    assert isinstance(store, MetadataLog)
+    assert store.to_obj() == {"type": "meta-log", "format": "json-pretty",
+                              "path": "m"}
+    monkeypatch.delenv("CHUNKY_BITS_TORCH_METADATA_KIND", raising=False)
+    assert isinstance(metadata_from_obj(plain), MetadataPath)
     # a put_script store stays a path store under the override
     assert isinstance(metadata_from_obj(
         {"type": "path", "path": "m", "put_script": "true"}), MetadataPath)
@@ -642,7 +655,11 @@ def test_tpu_example_backend_round_trips(tmp_path):
     pytest.param({"trace_slow_ms": -250}, "trace_slow_ms must be >= 0",
                  id="obj2-request tracing is not yet ported .*item 5"),
     ({"slo_eval_s": 15}, "tunables.slo_eval_s: .*not yet ported .*item 5"),
-    ({"scrub_bytes_per_sec": 1e6}, "scrub daemon is not yet ported .*6"),
+    # the scrub daemon is ported: the case keeps its id and now checks
+    # that a negative rate refuses
+    pytest.param({"scrub_bytes_per_sec": -1},
+                 "scrub_bytes_per_sec must be >= 0",
+                 id="obj4-scrub daemon is not yet ported .*6"),
     pytest.param({"cache_bytes": "lots"}, "invalid cache_bytes",
                  id="obj5-chunk cache is not yet ported .*item 5"),
     ({"on_conflict": "clobber"}, "invalid on_conflict"),

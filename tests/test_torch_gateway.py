@@ -877,3 +877,103 @@ def test_default_backend_refuses_to_serve_through_the_cpu(tmp_path,
         pytest.skip("a CUDA card is present")
     for backend in (None, "cuda", "jax"):
         arun(main(backend))
+
+
+# ---- storage ops: slab extents and the scrub daemon ----
+
+def slab_spec(tmp_path, **tunables_):
+    from tests.test_torch_slab import make_cluster_obj
+
+    return make_cluster_obj(tmp_path, chunk_log2=14,
+                            tunables=tunables_ or None)
+
+
+def test_sendfile_over_slab_extents(tmp_path):
+    """A Range inside one packed chunk streams from its slab extent
+    (``source=sendfile``), byte-identical; a corrupted extent falls back
+    to reassembly, still byte-identical."""
+    from tests.test_torch_slab import flip_byte
+
+    payload = payload_of(3 * 16384 + 777, 8)
+
+    async def main():
+        cluster = Cluster.from_obj(slab_spec(tmp_path))
+        app = make_app(cluster, sendfile=True)
+        async with await served(app) as client:
+            assert (await client.put("/obj", data=payload)).status == 200
+            assert await (await client.get("/obj")).read() == payload
+            for lo, hi in ((128, 2175), (200, 300), (16384, 20000)):
+                resp = await client.get(
+                    "/obj", headers={"Range": f"bytes={lo}-{hi}"})
+                assert resp.status == 206
+                assert await resp.read() == payload[lo:hi + 1]
+            await asyncio.sleep(0.05)  # the access log's finally blocks
+            sources = [e.source for e in app[PROFILER_KEY].drain_requests()
+                       if e.method == "GET"]
+            assert sources.count("sendfile") == 3, sources
+            ref = await cluster.get_file_ref("obj")
+            flip_byte(ref.parts[0].data[2].locations[0], 11, 1)
+            start = 2 * 16384 + 10
+            resp = await client.get(
+                "/obj", headers={"Range": f"bytes={start}-{start + 99}"})
+            assert resp.status == 206
+            assert await resp.read() == payload[start:start + 100]
+            await asyncio.sleep(0.05)
+            entries = app[PROFILER_KEY].drain_requests()
+            assert entries[-1].source in ("store", "cache"), entries[-1]
+        await cluster.tunables.location_context().aclose()
+
+    arun(main())
+
+
+def test_serve_runs_the_scrub_daemon_and_reports_it(tmp_path):
+    """``serve`` with ``scrub_bytes_per_sec`` set starts the daemon on its
+    loop: ``/scrub/status`` answers ``enabled: true`` with its counters
+    (a pass that repaired a flipped byte), the ``cb_scrub_*`` and
+    ``cb_repair_*`` families parse, objects read alongside, and the
+    daemon stops with the server."""
+    from aiohttp import ClientSession
+
+    from chunky_bits_tpu_torch.gateway import serve
+    from tests.test_torch_slab import flip_byte, write_payload
+
+    cluster = Cluster.from_obj(slab_spec(
+        tmp_path, scrub_bytes_per_sec=10_000_000, repair_block_bytes=4096))
+    payload = write_payload(cluster, "obj", 3 * 16384, seed=9)
+    ref = arun(cluster.get_file_ref("obj"))
+    flip_byte(ref.parts[0].data[1].locations[0], 5000)
+
+    async def main():
+        ready = asyncio.get_running_loop().create_future()
+        task = asyncio.ensure_future(serve(
+            cluster, "127.0.0.1", 0,
+            on_ready=lambda port: ready.set_result(port)))
+        port = await asyncio.wait_for(ready, 30)
+        try:
+            async with ClientSession() as session:
+                url = f"http://127.0.0.1:{port}"
+                for _ in range(1500):  # bounded: 15 s at most
+                    resp = await session.get(f"{url}/scrub/status")
+                    status = await resp.json()
+                    assert status["enabled"] is True
+                    if status["passes"] >= 1:
+                        break
+                    await asyncio.sleep(0.01)
+                assert status["passes"] >= 1, status
+                assert status["running"] is True
+                assert status["corrupt"] == 1 and status["repaired"] == 1
+                assert status["repair"]["plans_decode"] == 1
+                assert status["repair"]["helper_bytes_decode"] == 3 * 4096
+                assert await (await session.get(f"{url}/obj")).read() == \
+                    payload
+                text = await (await session.get(f"{url}/metrics")).text()
+                parsed = obs_metrics.parse_exposition(text)
+                assert any(s[2] >= 1 for s in
+                           parsed["cb_scrub_passes_total"]["samples"])
+                assert "cb_repair_plans_total" in parsed
+        finally:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        await cluster.tunables.location_context().aclose()
+
+    arun(main())

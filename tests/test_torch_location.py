@@ -76,15 +76,16 @@ def test_parse_and_display_equal_jax(s):
                                "(7,12)https://example.com/x",
                                "slab:/store/chunk", "sim:fabric/n0/c"])
 def test_schemes_not_yet_ported_are_refused(s):
-    """``slab:`` and ``sim:`` are refused by name; ``http(s)://`` is
-    ported now and parses as the JAX package parses it."""
-    if s.startswith("slab:") or s.startswith("sim:"):
+    """``sim:`` is refused by name; ``http(s)://`` and ``slab:`` are
+    ported now and parse as the JAX package parses them."""
+    if s.startswith("sim:"):
         with pytest.raises(LocationParseError, match="not yet ported"):
             Location.parse(s)
         return
     ours, theirs = Location.parse(s), jlocation.Location.parse(s)
     assert (ours.kind, ours.target, str(ours)) == \
-        (theirs.kind, theirs.target, str(theirs)) and ours.is_http()
+        (theirs.kind, theirs.target, str(theirs))
+    assert ours.is_http() or ours.is_slab()
 
 
 def test_parse_errors_and_hierarchy():
@@ -152,6 +153,37 @@ def test_fs_ranges_and_conflict_policy(tmp_path):
         assert await loc.read() == b"first"
         await loc.write(b"third")
         assert await loc.read() == b"third"
+
+    run(main())
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_slab_verbs_equal_jax(tmp_path, writer):
+    """Over one slab store, a chunk written through either package's
+    ``slab:`` location reads the same through both: whole, ranged,
+    zero-extended, viewed, its length and existence; a delete through the
+    other marks it dead for both."""
+    root = f"slab:{tmp_path}/store"
+    data = bytes(range(256)) * 3
+    wrote, other = ((Location, jlocation.Location) if writer == "port"
+                    else (jlocation.Location, Location))
+    ranges = ((0, None, False), (10, 20, False), (700, 100, True),
+              (760, None, False), (700, 100, False))
+
+    async def main():
+        await wrote.parse(root).child("sha256-cc").write(data)
+        for cls, rcls in ((Location, Range), (jlocation.Location,
+                                               jlocation.Range)):
+            loc = cls.parse(root).child("sha256-cc")
+            assert await loc.file_exists() and await loc.file_len() == 768
+            got = [await loc.with_range(rcls(*r)).read() for r in ranges]
+            assert got[0] == data and got[1] == data[10:30]
+            assert got[2] == data[700:] + b"\0" * 32
+            assert got[3] == data[760:] and got[4] == data[700:]
+            assert bytes(await loc.read_view()) == data
+        await other.parse(root).child("sha256-cc").delete()
+        for cls in (Location, jlocation.Location):
+            assert not await cls.parse(root).child("sha256-cc").file_exists()
 
     run(main())
 
