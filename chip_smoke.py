@@ -5,7 +5,8 @@
     python3 chip_smoke.py --all-gpus   # the mesh backends over every card
 
 Builds the five kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
-at first use, into ``chunky_bits_tpu_torch/_build/``) and holds each
+at first use, into ``chunky_bits_tpu_torch/_build/``; the host codec
+``gf256.cpp`` by g++ beside them) and holds each
 against its plain PyTorch version on the card, byte for byte (int16
 element for element for the accumulator K2): K1 (``gf_apply``) also
 against numpy at its edges (R 1-9 and 16, K 1-33, 64 and 255, S 1-4097,
@@ -71,7 +72,18 @@ drives the main paths:
   helper reads); config 13's rs and pm-msr legs (120 objects of 5 x 16
   KiB, 30 lost chunks: 2400 and 960 KiB of helper bytes); and config
   11's cluster served by ``gateway.serve`` with ``scrub_bytes_per_sec``
-  set until ``/scrub/status`` shows the pass that repaired it.
+  set until ``/scrub/status`` shows the pass that repaired it; config 2's
+  scrub and verify hash every local and slab replica through the native
+  fused read+hash, and the planner localizes each flipped chunk;
+* the ``host_codec`` group, the native host codec (``csrc/gf256.cpp``,
+  built by g++ beside the kernels): its build, tiers and the CPU's flags;
+  config 2's 10 GiB ingest on ``cuda`` with the native SHA-NI row hasher
+  on the shared host pipeline, its references equal to ``native`` and
+  ``numpy`` runs on a 16-part cut; cp, cat and verify through the CLI on
+  a ``backend: native:4`` YAML (the reference equal to the ``cuda``
+  YAML's); and BASELINE.md config 12's grid on ``native``, the table
+  kernels and the scheduled-XOR engine each byte-identical to numpy, at
+  host GiB/s of the card box's CPU.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -282,10 +294,17 @@ def phase_device(torch) -> str:
 
 
 def phase_build() -> None:
+    """Every CUDA kernel (nvcc, in parallel) and, beside them, the host
+    codec ``csrc/gf256.cpp`` (g++), from the checkout's sources."""
     from chunky_bits_tpu_torch.ops import _build
 
-    _build.build_all()
-    log(f"build: {_build.BUILD_SECONDS:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.host_library)
+        _build.build_all()
+        host.result()
+    log(f"build: {_build.BUILD_SECONDS:.1f} s; host codec "
+        f"{_build.HOST_BUILD['seconds'] or 0:.1f} s "
+        f"({_build.HOST_BUILD['flags'] or 'cached'})")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2060,6 +2079,31 @@ class ScrubCapture:
         self.mod.ScrubDaemon.run_once = self.real
 
 
+class FusedCount:
+    """Counts the native fused read+hash passes (``cpu_backend.
+    sha256_file``, which ``file_part._hash_local_fused`` calls) while
+    open."""
+
+    def __init__(self):
+        from chunky_bits_tpu_torch.ops import cpu_backend
+
+        self.mod, self.real, self.calls = cpu_backend, \
+            cpu_backend.sha256_file, 0
+
+        def sha256_file(*args):
+            self.calls += 1
+            return self.real(*args)
+
+        cpu_backend.sha256_file = sha256_file
+
+    def take(self) -> int:
+        calls, self.calls = self.calls, 0
+        return calls
+
+    def close(self) -> None:
+        self.mod.sha256_file = self.real
+
+
 def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
     """The storage group: slab destinations, meta-log metadata, scrub and
     the repair planner on the card.  (1) config 2 through the CLI in this
@@ -2149,12 +2193,20 @@ def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
             drop_replica(unique_chunk(ref, i, i).locations[0])
         replica_bytes = (DISK_PARTS * (D + P) * CHUNK
                          + (D + P) * -(-TAIL // D))
+        replicas = (DISK_PARTS + 1) * (D + P)
+        fused = FusedCount()
         (text, dt, shapes) = step("st_scrub", run_cli,
                                   ["scrub", "--once", conf], txt,
                                   nbytes=replica_bytes, k1=True,
                                   repair=True)
         stats = capture.stats.pop()
         rep = stats.repair
+        # every replica left is hashed by the native fused read+hash, and
+        # the planner re-reads each corrupt chunk to localize its damage,
+        # as the JAX package's planner does for the same damage
+        scrub_fused = fused.take()
+        assert scrub_fused == replicas - C2_DROPPED, scrub_fused
+        assert rep["bytes_localized"] == C2_FLIPPED * CHUNK, rep
         log(f"  {text.decode().strip()}")
         assert (stats.corrupt, stats.unavailable, stats.repair_failures) \
             == (C2_FLIPPED, C2_DROPPED, 0), stats
@@ -2169,11 +2221,18 @@ def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
             f"{rep['helper_bytes_decode']} helper bytes for "
             f"{rep['bytes_rebuilt']} rebuilt "
             f"({rep['helper_bytes_per_rebuilt_byte']} a byte); "
-            f"{plans_per_launch(stats, shapes)}")
+            f"{plans_per_launch(stats, shapes)}; {scrub_fused} replicas "
+            f"hashed by the native fused read+hash, "
+            f"{rep['bytes_localized']} bytes localized")
         report = step("st_verify", run_cli, ["verify", obj], txt,
                       nbytes=total)[0].decode()
         assert report.startswith("file\tValid"), report[:200]
         assert "Invalid" not in report and "Unavailable" not in report
+        verify_fused = fused.take()
+        fused.close()
+        assert verify_fused == replicas, verify_fused
+        log(f"  verify: all {verify_fused} replicas through the native "
+            f"fused read+hash")
         step("st_cat", run_cli, ["cat", obj], out, nbytes=total, k1=True)
         assert same_file(src, out), "cat after scrub differs"
         compact = json.loads(step("st_meta_compact", run_cli,
@@ -2352,6 +2411,227 @@ def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
     capture.close()
     rec.close()
     return expected, shapes_seen
+
+
+#: the host_codec group: a cut of config 2's stream for the native and
+#: numpy references, and the CLI object of the ``native:4`` YAML
+HC_CUT_PARTS = 16
+HC_CLI_PARTS = 25
+#: BASELINE.md config 12's grid (bench.py config 12), each cell's working
+#: set cut to 16 MiB (bench.py: 64 MiB), best of 3
+C12_GEOMETRIES = ((3, 2), (10, 4), (20, 6))
+C12_SIZES = (64 << 10, 1 << 20, 4 << 20)
+C12_WORKING_SET = 16 << 20
+#: the numpy oracle checks the first parts of each config-12 cell
+C12_ORACLE_PARTS = 2
+
+
+def cpu_flags() -> dict:
+    """The host CPU's model and the SIMD/SHA flags the codec dispatches
+    on, from ``/proc/cpuinfo``."""
+    model, flags = "unknown", set()
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _sep, value = line.partition(":")
+            if key.strip() == "model name" and model == "unknown":
+                model = value.strip()
+            elif key.strip() == "flags" and not flags:
+                flags = set(value.split())
+    return {"model": model, **{k: k in flags
+                               for k in ("sha_ni", "gfni", "avx2",
+                                         "avx512f")}}
+
+
+def phase_host_codec(blob: bytes, path, counts, be) -> dict:
+    """The host_codec group: the port's native host codec (``csrc/
+    gf256.cpp``, built by g++) on the card's box.  (1) the build, its
+    tiers and the CPU's flags; ``row_hasher()`` must be the native engine.
+    (2) BASELINE.md config 2's 10 GiB void ingest on ``cuda`` (K1 on the
+    card, SHA-NI on the host, through the shared host pipeline), its
+    references equal to a ``native`` and a ``numpy`` run on a cut of the
+    same stream.  (3) cp, cat and verify through the CLI on a config-2
+    YAML with ``backend: native:4``, the reference equal to the one the
+    ``cuda`` YAML writes.  (4) config 12's grid on ``native``: the table
+    kernels (best tier and scalar) and the scheduled-XOR engine, each
+    cell byte-identical to numpy.  The storage group's config-2 scrub and
+    verify ran through the native fused read+hash (checked there).
+    Returns the expected launches of its paths."""
+    import tempfile
+
+    import yaml
+
+    from chunky_bits_tpu_torch.ops import _build, cpu_backend, matrix
+    from chunky_bits_tpu_torch.ops.backend import (NumpyBackend,
+                                                   row_hasher_engine)
+    from chunky_bits_tpu_torch.parallel.host_pipeline import \
+        get_host_pipeline
+
+    expected = {}
+    rec = ApplyRecorder(be)
+
+    # ---- (1) the build ----
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True,
+                         timeout=60).stdout.splitlines()[0]
+    assert row_hasher_engine() == "native", row_hasher_engine()
+    tiers = cpu_backend.native_tiers()
+    log(f"host codec: {gxx}; built in "
+        f"{_build.HOST_BUILD['seconds'] or 0:.2f} s with "
+        f"{_build.HOST_BUILD['flags'] or '(cached)'}; "
+        f"sha256_is_accelerated {cpu_backend.sha256_is_accelerated()}; "
+        f"tiers gf {tiers['gf']} (0 scalar, 1 AVX2, 2 GFNI), xor "
+        f"{tiers['xor']} (0 scalar, 1 SSE2, 2 AVX2); host CPU "
+        f"{cpu_flags()}; row hasher {row_hasher_engine()}")
+
+    # ---- (2) config 2's ingest with the native row hasher ----
+    pipe = get_host_pipeline()
+
+    def hash_busy() -> tuple:
+        st = {x.stage: x for x in pipe.stats().stages}
+        h = st.get("hash")
+        return (h.busy_s, h.nbytes) if h is not None else (0.0, 0)
+
+    busy0 = hash_busy()
+    t0 = time.perf_counter()
+    full, batcher = path("hc_ingest", phase_object_ingest, blob, pipe,
+                         "cuda, native row hasher", None, OBJECT_PARTS)
+    dt = time.perf_counter() - t0
+    expected["hc_ingest"] = expected_gf(be, batcher.shapes, False)
+    busy1 = hash_busy()
+    hashed = busy1[1] - busy0[1]
+    log(f"  host pipeline: {busy1[0] - busy0[0]:.2f} hash busy s for "
+        f"{hashed / 2**30:.2f} GiB hashed ({pipe.threads} workers); "
+        f"{full.length / 2**30 / dt:.2f} GiB/s end to end (the hashlib "
+        f"row hasher: 0.79-0.80 GiB/s on this phase, PERF.md §5)")
+    assert hashed >= full.length, (hashed, full.length)
+    want = full.to_obj()["parts"][:HC_CUT_PARTS]
+    for name in ("native", "numpy"):
+        tag = f"hc_ingest_cut_{name}"
+        cut, _b = path(tag, phase_object_ingest, blob, pipe,
+                       f"{name}, a cut", None, HC_CUT_PARTS, OBJECT_BATCH,
+                       OBJECT_STAGE, name)
+        expected[tag] = {k: 0 for k in KERNELS}
+        assert cut.to_obj()["parts"][:HC_CUT_PARTS] == want, name
+    log(f"  the first {HC_CUT_PARTS} parts' references equal on cuda, "
+        f"native and numpy")
+    del full
+    stamp("host_codec ingest")
+
+    # ---- (3) the CLI on a native:4 YAML ----
+    with tempfile.TemporaryDirectory(prefix="cb-hc-") as root:
+        total = HC_CLI_PARTS * D * CHUNK + TAIL
+        src = os.path.join(root, "src.bin")
+        write_source(src, blob, total)
+        txt = os.path.join(root, "stdout.txt")
+        out = os.path.join(root, "out.bin")
+        confs = {}
+        for name in ("native:4", "cuda"):
+            top = os.path.join(root, name.replace(":", "-"))
+            os.makedirs(top)
+            confs[name] = cluster_yaml(top, CONFIG2, name)
+
+        def step(tag: str, argv: list[str], dst: str, nbytes: int):
+            rec.expected()  # work before the step is not the step's
+            t0 = time.perf_counter()
+            text = path(tag, run_cli, argv, dst)
+            dt = time.perf_counter() - t0
+            expected[tag] = rec.expected()
+            log(f"  {tag}: {dt:.2f} s, {gib_s(nbytes, dt):.2f} GiB/s, K1 "
+                f"launches {counts[tag]['gf_apply']}")
+            return text
+
+        obj = f"{confs['native:4']}#obj"
+        step("hc_cli_cp_native", ["cp", src, obj], txt, total)
+        step("hc_cli_cat_native", ["cat", obj], out, total)
+        assert same_file(src, out), "cat on native:4 differs"
+        report = step("hc_cli_verify_native", ["verify", obj], txt,
+                      total).decode()
+        assert report.startswith("file\tValid"), report[:200]
+        step("hc_cli_cp_cuda", ["cp", src, f"{confs['cuda']}#obj"], txt,
+             total)
+        assert counts["hc_cli_cp_cuda"]["gf_apply"] > 0
+        for tag in ("hc_cli_cp_native", "hc_cli_cat_native",
+                    "hc_cli_verify_native"):
+            assert counts[tag]["gf_apply"] == 0, (tag, counts[tag])
+
+        def chunk_hashes(conf: str) -> list:
+            with open(os.path.join(os.path.dirname(conf), "meta",
+                                   "obj")) as f:
+                ref = yaml.safe_load(f)
+            return [[c["sha256"] for c in part["data"] + part["parity"]]
+                    for part in ref["parts"]]
+
+        assert chunk_hashes(confs["native:4"]) == chunk_hashes(confs["cuda"])
+        log(f"  native:4: cat equal to the source, verify Valid, the "
+            f"reference equal to the cuda YAML's ({HC_CLI_PARTS + 1} "
+            f"parts)")
+    stamp("host_codec cli")
+
+    # ---- (4) config 12: table kernels and the scheduled-XOR engine ----
+    rng = np.random.default_rng(SEED + 12)
+    oracle = NumpyBackend()
+    table = cpu_backend.NativeBackend(xor_schedule=False)
+    xor = cpu_backend.NativeBackend(xor_schedule=True)
+
+    def best(fn, iters: int = 3) -> float:
+        out = float("inf")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            out = min(out, time.perf_counter() - t0)
+        return out
+
+    cells = []
+    for d, p in C12_GEOMETRIES:
+        enc = matrix.build_encode_matrix(d, p)
+        for size in C12_SIZES:
+            b = max(1, C12_WORKING_SET // (d * size))
+            data = rng.integers(0, 256, (b, d, size), dtype=np.uint8)
+            nbytes = b * d * size
+            for leg in ("encode", "decode"):
+                if leg == "encode":
+                    mat, src = enc[d:], data
+                else:
+                    full_rows = np.concatenate(
+                        [data, table.apply_matrix(enc[d:], data)], axis=1)
+                    lost = sorted(rng.choice(d + p, size=p,
+                                             replace=False).tolist())
+                    present = [i for i in range(d + p) if i not in lost]
+                    mat = matrix.decode_matrix(enc, present, lost)
+                    src = np.ascontiguousarray(
+                        full_rows[:, np.array(present[:d])])
+                want = table.apply_matrix(mat, src)
+                assert np.array_equal(xor.apply_matrix(mat, src), want), \
+                    (d, p, size, leg)
+                n = min(b, C12_ORACLE_PARTS)
+                assert np.array_equal(oracle.apply_matrix(mat, src[:n]),
+                                      want[:n]), (d, p, size, leg)
+                if leg == "decode":
+                    assert np.array_equal(want, full_rows[:, lost])
+                t_table = best(lambda: table.apply_matrix(mat, src))
+                cpu_backend.gf_force_level(0)
+                try:
+                    t_scalar = best(lambda: table.apply_matrix(mat, src))
+                finally:
+                    cpu_backend.gf_force_level(2)
+                t_xor = best(lambda: xor.apply_matrix(mat, src))
+                cell = {"d": d, "p": p, "size_kib": size >> 10, "leg": leg,
+                        "table": gib_s(nbytes, t_table),
+                        "table_scalar": gib_s(nbytes, t_scalar),
+                        "xor": gib_s(nbytes, t_xor)}
+                cells.append(cell)
+                log(f"  config 12 d{d}p{p} {size >> 10} KiB {leg}: host "
+                    f"GiB/s on the card's box: table {cell['table']:.2f} "
+                    f"(scalar {cell['table_scalar']:.2f}), xor "
+                    f"{cell['xor']:.2f}")
+    wins = sum(c["xor"] > c["table"] for c in cells)
+    wins_scalar = sum(c["xor"] > c["table_scalar"] for c in cells)
+    log(f"  config 12: every cell byte-identical to numpy with "
+        f"CHUNKY_BITS_TORCH_XOR_SCHEDULE's engine off and on; xor beats "
+        f"the best table tier in {wins}/{len(cells)} cells, the scalar "
+        f"table in {wins_scalar}/{len(cells)}")
+    rec.close()
+    return expected
 
 
 def phase_timings(torch, dev, coder, data: np.ndarray,
@@ -3159,6 +3439,10 @@ def main() -> int:
                                                     tp_rec)
     expected.update(storage_expected)
     stamp("storage")
+
+    # the host_codec group: the native host codec on the card's box
+    expected.update(phase_host_codec(blob, path, counts, be))
+    stamp("host_codec")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")

@@ -55,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--backend",
                         help="Erasure backend: cuda (the default), "
                              "cuda:<spec> (e.g. cuda:dp2,tp4), mesh, "
-                             "torch or numpy; the JAX package's jax, "
-                             "jax:<spec> and auto resolve to the card")
+                             "native (the C++ host codec), native:<N> "
+                             "(with N host threads), torch or numpy; the "
+                             "JAX package's jax, jax:<spec> and auto "
+                             "resolve to the card")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("cat", help="Concatenate files together")
@@ -225,7 +227,10 @@ async def run(args) -> int:
         # environment, as in the JAX package
         from chunky_bits_tpu_torch.cluster.tunables import \
             set_default_backend
+        from chunky_bits_tpu_torch.ops.backend import \
+            canonical_backend_name
 
+        canonical_backend_name(args.backend)  # a bad name fails here
         set_default_backend(args.backend)
     config = await Config.load_or_default(
         args.config, chunk_size=args.chunk_size,

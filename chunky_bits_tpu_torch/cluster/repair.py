@@ -302,8 +302,8 @@ class RepairPlanner:
         the range and the base starts as zeros (every byte will be
         rewritten).  ``payloads`` maps ``(chunk index, location)`` to
         corrupt-replica bytes the caller's verify phase already read
-        (the scrub's verify surfaces them) — when present,
-        localization costs no I/O at all.  A
+        (the generic read path surfaces them; the fused hash path does
+        not) — when present, localization costs no I/O at all.  A
         victim re-read, when needed, is metered like any repair I/O."""
         whole = [(0, chunksize)]
         if chunk.blocks is None:

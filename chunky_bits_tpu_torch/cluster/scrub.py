@@ -24,10 +24,12 @@ the cold tail.  On a meta-log store the pre-scan is a pure index scan
 and refs are fetched one ``FETCH_PAGE`` at a time; on a path store the
 pass reads each ref once into one snapshot.
 
-**Hashing.**  Every replica is read and verified on the host pipeline;
-a corrupt replica's bytes go to the planner, which localizes the damage
-from them without re-reading the victim.  (The JAX package first tries
-its native fused read+hash, which the port does not have.)
+**Hashing.**  A local or slab replica is hashed in one native read+hash
+pass (``file_part._hash_local_fused``), its bytes never reaching Python,
+so the planner re-reads a corrupt one to localize the damage, as in the
+JAX package.  Any other replica is read and verified on the host
+pipeline, and a corrupt one's bytes go to the planner, which localizes
+from them without a re-read.
 
 **Concurrency.**  The daemon is a plain asyncio task on its caller's
 loop; ``stop()`` cancels and awaits it.
@@ -441,16 +443,24 @@ class ScrubDaemon:
     async def _verify_chunk(self, chunk, location, cx, pipe
                             ) -> tuple[Optional[bool], Optional[bytes]]:
         """(verdict, corrupt bytes): verdict True = the replica matches
-        its digest, False = corrupt, None = unreadable.  The replica is
-        read and verified on the host pipeline; a corrupt replica's bytes
-        ride back, so the repair planner localizes the damage without
-        re-reading the victim.  The byte budget is taken BEFORE the I/O:
-        the bound meters bytes touched, not bytes that verified."""
+        its digest, False = corrupt, None = unreadable.  The native fused
+        read+hash where the replica is local or packed in a slab (no bytes
+        come back); otherwise a read verified on the host pipeline, whose
+        bytes ride back when corrupt, so the repair planner localizes the
+        damage without re-reading the victim.  The byte budget is taken
+        BEFORE the I/O: the bound meters bytes touched, not bytes that
+        verified."""
+        from chunky_bits_tpu_torch.file.file_part import _hash_local_fused
+
         try:
             nbytes = await location.file_len(cx)
         except LocationError:
             return None, None
         await self._bucket.take(nbytes)
+        digest = await _hash_local_fused(chunk, location, cx, pipe)
+        if digest is not None:
+            self._bump(bytes=nbytes)
+            return digest == chunk.hash.value.digest, None
         try:
             data = await location.read(cx)
         except LocationError:

@@ -32,7 +32,8 @@ from chunky_bits_tpu_torch.errors import SerdeError
 #: prefix of every environment variable the port reads
 ENV_PREFIX = "CHUNKY_BITS_TORCH_"
 
-#: default erasure backend name (``numpy``, ``torch`` or ``cuda``)
+#: default erasure backend name (``numpy``, ``torch``, ``native[:N]`` or
+#: ``cuda``)
 BACKEND_ENV = ENV_PREFIX + "BACKEND"
 
 #: "1" hashes shards on the card inside the encode dispatch
@@ -45,6 +46,13 @@ PACKED_KERNEL_ENV = ENV_PREFIX + "PACKED_KERNEL"
 #: host compute worker count of the shared host pipeline (0/unset = one
 #: per core)
 HOST_THREADS_ENV = ENV_PREFIX + "HOST_THREADS"
+
+#: flag: the ``native`` backend runs GF(2^8) matrix applies as a
+#: scheduled program of wide XORs over bit-planes (ops/xor_schedule.py +
+#: ``cb_xor_exec`` in csrc/gf256.cpp) instead of per-byte table kernels.
+#: Byte-identical either way; off by default, as in the JAX package.  Read
+#: at the first dispatch of each ``NativeBackend``
+XOR_SCHEDULE_ENV = ENV_PREFIX + "XOR_SCHEDULE"
 
 #: flag: keep every local read and ingest source off mmap (sources that
 #: another process may truncate while they are read)
@@ -125,6 +133,12 @@ def env_flag(name: str, *, default: bool = False) -> bool:
     if raw is None:
         return default
     return raw.strip().lower() not in _FALSY
+
+
+def xor_schedule_enabled(*, default: bool = False) -> bool:
+    """True when ``$CHUNKY_BITS_TORCH_XOR_SCHEDULE`` asks the ``native``
+    backend for the scheduled-XOR engine; parsed as a standard flag."""
+    return env_flag(XOR_SCHEDULE_ENV, default=default)
 
 
 def host_threads(*, default: int = 0) -> int:

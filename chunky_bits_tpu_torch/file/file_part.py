@@ -8,9 +8,10 @@ lattice (:392-455) and the Verify/Resilver part reports (:570-838).  The
 erasure math goes through the port's ``ErasureCoder``; ``encode_shards`` is
 pure, so a staging layer can batch many parts into one device dispatch.
 
-Verify re-reads each location and hashes it on the host pipeline; the
-JAX package's fused native read+hash pass (``_hash_local_fused``) comes
-with the native codec, and gives the same digests.
+Verify hashes a local or slab replica in one native read+hash pass
+(``_hash_local_fused``, the SHA-NI engine of csrc/gf256.cpp), as the JAX
+package does, and re-reads anything else and hashes it on the host
+pipeline; both give the same digests.
 """
 
 from __future__ import annotations
@@ -109,6 +110,62 @@ def _buf_len(data: object) -> int:
         return len(memoryview(data))  # type: ignore[arg-type]
     except TypeError:
         return 0
+
+
+#: whether the native read+hash pass is available, resolved at first use
+_FUSED_OK: Optional[bool] = None
+
+
+async def _hash_local_fused(chunk: Chunk, location: Location,
+                            cx: LocationContext,
+                            pipeline: Optional["HostPipeline"] = None
+                            ) -> Optional[bytes]:
+    """Digest of a local or slab-packed chunk from the native streaming
+    read+hash pass (``ops.cpu_backend.sha256_file``), the bytes never
+    reaching Python; a slab extent hashes in place as
+    ``sha256_file(slab file, extent offset + start, length)``.  None when
+    the pass does not apply: an http or zero-extended location, a hash
+    other than sha256, an attached profiler (which must see the generic
+    read), a host whose row hasher is not the native engine
+    (``ops.backend.row_hasher_engine``), or any I/O error (the generic
+    path re-reads and reports it in its own words)."""
+    if (cx.profiler is not None
+            or not (location.is_local() or location.is_slab())
+            or location.range.extend_zeros
+            or chunk.hash.algorithm != "sha256"):
+        return None
+    global _FUSED_OK
+    if _FUSED_OK is None:
+        from chunky_bits_tpu_torch.ops.backend import row_hasher_engine
+
+        # the first call may build the codec: off the loop
+        _FUSED_OK = await asyncio.to_thread(row_hasher_engine) == "native"
+    if not _FUSED_OK:
+        return None
+    from chunky_bits_tpu_torch.ops.cpu_backend import sha256_file
+
+    path = location.target
+    start = location.range.start or 0
+    length = location.range.length
+    if location.is_slab():
+        ext = await asyncio.to_thread(location.slab_extent)
+        if ext is None:
+            return None  # the generic path reports the miss
+        path, base, ext_len = ext
+        avail = max(ext_len - start, 0)
+        if length is None:
+            length = avail
+        elif length > avail:
+            # a short range reads short on the generic path; the fused
+            # pass must not hash past the extent into a neighbour
+            return None
+        start += base
+    try:
+        return await _pipe(pipeline).run(
+            "verify", lambda: sha256_file(path, start, length),
+            nbytes=length or 0)
+    except OSError:
+        return None
 
 
 async def _read_chunk_payload(location: Location, cx: LocationContext
@@ -698,6 +755,9 @@ class FilePart:
         async def check(ci: int, chunk: Chunk, li: int,
                         location: Location) -> tuple:
             async with sem:
+                digest = await _hash_local_fused(chunk, location, cx, pipe)
+                if digest is not None:
+                    return (ci, li, digest == chunk.hash.value.digest, None)
                 try:
                     data = await location.read(cx)
                 except LocationError as err:

@@ -18,8 +18,9 @@ Beyond the reference, as in the JAX package:
 - **Zero-copy local-chunk streaming.**  A range inside one data chunk
   with a verified local replica streams with ``loop.sendfile`` (page
   cache to socket), bypassing fetch, verify and reassembly.  The digest
-  is taken once on the host pipeline and memoized per (path, size,
-  mtime_ns); ``$CHUNKY_BITS_TORCH_GATEWAY_SENDFILE`` turns the path off.
+  is taken once (the native fused read+hash on the host pipeline) and
+  memoized per (path, size, mtime_ns);
+  ``$CHUNKY_BITS_TORCH_GATEWAY_SENDFILE`` turns the path off.
 - **Admission control.**  In-flight GET bodies are bounded
   (``max_concurrent_gets``): excess requests get an immediate 503 +
   ``Retry-After``.  PUT ingests queue on a semaphore, under a size cap
@@ -375,13 +376,15 @@ def make_app(cluster: Cluster,
     # runs — merged /metrics labels it per worker, so a mixed-version
     # or mixed-flag supervisor fleet is visible in one scrape
     from chunky_bits_tpu_torch import __version__ as _pkg_version
-    from chunky_bits_tpu_torch.cluster.tunables import erasure_code
+    from chunky_bits_tpu_torch.cluster.tunables import (erasure_code,
+                                                        xor_schedule_enabled)
     from chunky_bits_tpu_torch.ops.backend import canonical_backend_name
 
     obs_metrics.record_build_info(
         _pkg_version, canonical_backend_name(cluster.tunables.backend),
         {
             "code": erasure_code(),
+            "xor_schedule": "on" if xor_schedule_enabled() else "off",
             "sendfile": "on" if sendfile else "off",
             "scrub": "on" if scrub is not None else "off",
             "slo": "off",
@@ -449,10 +452,14 @@ def make_app(cluster: Cluster,
         """(file path, byte offset) to stream ``chunk``'s verified bytes
         from (a whole local chunk file, or a live extent inside a packed
         slab), or None when this replica cannot serve the zero-copy path
-        (wrong size, corrupt, missing).  A full digest on the host
-        pipeline at first sight, the memo afterwards.  A slab extent's
-        memo key binds the chunk digest: slab bytes are write-once, but
-        a compaction of an emptied store can reuse an extent address."""
+        (wrong size, corrupt, missing).  A full digest at first sight
+        (the native fused read+hash, or a streaming hashlib pass on the
+        host pipeline where it does not apply), the memo afterwards.  A
+        slab extent's memo key binds the chunk digest: slab bytes are
+        write-once, but a compaction of an emptied store can reuse an
+        extent address."""
+        from chunky_bits_tpu_torch.file.file_part import _hash_local_fused
+
         if location.is_slab():
             ext = await asyncio.to_thread(location.slab_extent)
             if ext is None:
@@ -476,12 +483,16 @@ def make_app(cluster: Cluster,
             token = (st.st_size, st.st_mtime_ns)
             if verified_memo.get(key) == token:
                 return (path, 0)
-        try:
-            digest = await pipe.run(
-                "verify", lambda: _sha256_extent(path, base, chunksize),
-                nbytes=chunksize)
-        except OSError:
-            return None
+        cx = cluster.tunables.location_context()
+        digest = await _hash_local_fused(chunk, location, cx, pipe)
+        if digest is None:
+            try:
+                digest = await pipe.run(
+                    "verify",
+                    lambda: _sha256_extent(path, base, chunksize),
+                    nbytes=chunksize)
+            except OSError:
+                return None
         if digest != chunk.hash.value.digest:
             # a corrupt replica: a demerit for the node, and the generic
             # read path (which falls through or reconstructs) takes over

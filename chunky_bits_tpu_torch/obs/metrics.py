@@ -247,8 +247,9 @@ class MetricsRegistry:
 
     def register_source(self, kind: str, obj: object) -> None:
         """Weakly register a stat source (``kind`` one of "cache",
-        "pipeline", "health", "repair", "scrub"); its ``stats()`` is folded into every
-        snapshot while the object lives;
+        "pipeline", "health", "repair", "scrub", "xor_schedule"); its
+        ``stats()`` (``info()`` for the xor-schedule cache) is folded into
+        every snapshot while the object lives;
         registration never extends the object's lifetime, so sources
         drop out with their owners."""
         with self._lock:
@@ -597,6 +598,18 @@ def _source_families(reg: MetricsRegistry) -> list[dict]:
                          "scrub byte-rate bound", [_scalar(
                              sum(x["rate_bytes_per_sec"]
                                  for x in scrubs))]))
+
+    scheds = [s.info() for s in reg.sources("xor_schedule")]
+    if scheds:
+        s = _sum_rows(scheds, ("hits", "misses", "evictions", "size"))
+        for key in ("hits", "misses", "evictions"):
+            fams.append(_fam(f"cb_xor_schedule_{key}_total", COUNTER,
+                             f"scheduled-XOR program cache {key} "
+                             "(ops/xor_schedule.py LRU)",
+                             [_scalar(s[key])]))
+        fams.append(_fam("cb_xor_schedule_entries", GAUGE,
+                         "scheduled-XOR program cache entries",
+                         [_scalar(s["size"])]))
 
     return fams
 

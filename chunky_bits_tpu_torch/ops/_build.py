@@ -1,4 +1,5 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's CUDA kernels with nvcc, and its host codec with g++,
+and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers),
 so one source compiles in seconds.  At first use every source is compiled
@@ -8,8 +9,13 @@ its source and the flags, so a stale build is never loaded; a file lock
 serialises concurrent first use across processes, and each library is
 written under a private name and renamed into place.
 
+The host codec ``csrc/gf256.cpp`` (``host_library``) is host C++ and
+never needs nvcc: g++ builds it with ``-march=native`` first and without
+it if that fails, keyed by the source and this host's CPU flags (a build
+for one CPU is never loaded on another), under the same lock discipline.
+
 Nothing here runs at import time, and there is no fallback: a failed build
-raises ``ErasureError`` with nvcc's output.
+raises ``ErasureError`` with the compiler's output.
 """
 
 from __future__ import annotations
@@ -116,6 +122,77 @@ def _compile(names: list[str], paths: dict[str, str]) -> None:
     if failed:
         raise ErasureError("nvcc failed for " + ", ".join(
             f"{n}.cu:\n{BUILD_LOG[n]}" for n in failed))
+
+
+#: the host codec's source, compiler flags and per-attempt extra flags
+HOST_SOURCE = os.path.join(CSRC, "gf256.cpp")
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+HOST_ATTEMPTS = (("-march=native",), ())
+#: what the last host build in this process did: the flags that built it
+#: (None when the cache was warm), its seconds and g++'s output per try
+HOST_BUILD: dict = {"flags": None, "seconds": None, "log": []}
+
+
+def _cpu_tag() -> bytes:
+    """This host's CPU model and feature flags (``-march=native`` builds
+    for them)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return os.uname().machine.encode()
+    keep = [ln for ln in lines
+            if ln.startswith((b"model name", b"flags", b"Features"))]
+    return b"\n".join(sorted(set(keep))) or os.uname().machine.encode()
+
+
+def host_library() -> str:
+    """The host codec's shared library, built on first use."""
+    with open(HOST_SOURCE, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha256(src + b"\0" + " ".join(HOST_FLAGS).encode()
+                         + b"\0" + _cpu_tag()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"libcbgf-{tag}.so")
+    with open(os.path.join(BUILD_DIR, ".host.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):
+                _compile_host(path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path
+
+
+def _compile_host(path: str) -> None:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise ErasureError("g++ not found: the native host codec cannot be "
+                           "built")
+    t0 = time.perf_counter()
+    tmp = f"{path}.tmp.{os.getpid()}"
+    HOST_BUILD["log"] = []
+    try:
+        for extra in HOST_ATTEMPTS:
+            cmd = [gxx, *extra, *HOST_FLAGS, HOST_SOURCE, "-o", tmp]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, timeout=300)
+            except (subprocess.SubprocessError, OSError) as err:
+                HOST_BUILD["log"].append(f"{' '.join(cmd)}: {err}")
+                continue
+            HOST_BUILD["log"].append(
+                proc.stdout.decode(errors="replace")
+                + proc.stderr.decode(errors="replace"))
+            if proc.returncode == 0:
+                os.replace(tmp, path)
+                HOST_BUILD["flags"] = " ".join(extra + HOST_FLAGS)
+                HOST_BUILD["seconds"] = time.perf_counter() - t0
+                return
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    raise ErasureError("failed to build the native gf256 codec:\n"
+                       + "\n".join(HOST_BUILD["log"]))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,6 +11,8 @@ arrays at the JAX package's layouts (matrix ``[R, K]``, shards
 ``[B, K, S]``, digests ``[B, d+p, 32]``).  Backends:
 
 * ``numpy`` - pure-numpy table codec on the host.
+* ``native`` - the C++ host codec (ops/cpu_backend.py, csrc/gf256.cpp
+  built by g++); ``native:N`` caps its host threads at N.
 * ``torch`` - the kernels' plain PyTorch versions on the CPU.
 * ``cuda``  - the hand-written kernels on the card (ops/cuda_backend.py);
   the default.  It raises ``ErasureError`` when there is no card or a
@@ -21,8 +23,9 @@ arrays at the JAX package's layouts (matrix ``[R, K]``, shards
 
 A cluster YAML written for the JAX package names that package's backends.
 ``get_backend`` resolves them in one place (``canonical_backend_name``):
-``jax`` is ``cuda``, ``jax:<spec>`` is ``cuda:<spec>``, ``auto`` is the
-default, and ``native`` (the C++ host codec, not ported yet) raises.
+``jax`` is ``cuda``, ``jax:<spec>`` is ``cuda:<spec>``, and ``auto`` is
+the default (the card, where the JAX package's ``auto`` means its native
+codec).  ``native`` and ``native:N`` are the same codec in both packages.
 
 All of them produce byte-identical shards and digests; tests assert it.
 """
@@ -158,19 +161,19 @@ def canonical_backend_name(name: Optional[str] = None) -> str:
     ``None`` and ``auto`` are the default: ``$CHUNKY_BITS_TORCH_BACKEND``
     if set, else ``cuda`` (never "the CPU if there is no card").  The JAX
     package's names map to the card: ``jax`` to ``cuda`` and
-    ``jax:<spec>`` to ``cuda:<spec>``.  ``native`` is the JAX package's
-    C++ host codec, which the port has not yet, so it raises rather than
-    run on another host backend."""
+    ``jax:<spec>`` to ``cuda:<spec>``.  ``native`` is the C++ host codec,
+    and ``native:N`` the same with N host threads; a count that is not a
+    positive integer raises, as in the JAX package."""
     if name is None or name == "auto":
         from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
                                                             env_str)
 
         name = env_str(BACKEND_ENV) or "cuda"
-    if name == "native" or name.startswith("native:"):
-        raise ErasureError(
-            f"erasure backend {name!r} (the C++ host codec) is not yet "
-            f"ported (ROADMAP Queue A item 4); the port's CPU backends are "
-            f"'torch' and 'numpy'")
+    if name.startswith("native:"):
+        spec = name[len("native:"):]
+        if not spec.isdigit() or int(spec) < 1:
+            raise ErasureError(
+                f"bad native thread count {spec!r} (want e.g. native:4)")
     head, sep, spec = name.partition(":")
     if head in _ALIASES:
         return _ALIASES[head] + sep + spec
@@ -190,6 +193,13 @@ def get_backend(name: Optional[str] = None) -> ErasureBackend:
             return _REGISTRY[name]
     if name == "numpy":
         backend: ErasureBackend = NumpyBackend()
+    elif name == "native" or name.startswith("native:"):
+        # ``native:N`` bounds the codec's and the hasher's threads: the
+        # knob of hosts shared with other work
+        from chunky_bits_tpu_torch.ops.cpu_backend import NativeBackend
+
+        backend = NativeBackend(nthreads=int(name.partition(":")[2] or 0))
+        backend.name = name
     elif name == "torch":
         backend = TorchBackend()
     elif name == "cuda":
@@ -227,19 +237,61 @@ def _build_mesh(name: str, build: Callable[[], ErasureBackend]
             from err
 
 
-def _hash_rows_hashlib(rows: np.ndarray, out: np.ndarray) -> None:
-    """out[..., 32] = sha256 of each row of uint8 rows[..., S]."""
+def _hash_rows_hashlib(rows: np.ndarray, out: np.ndarray,
+                       nthreads: int = 0) -> None:
+    """out[..., 32] = sha256 of each row of uint8 rows[..., S], row by row
+    under hashlib (``nthreads`` is taken for the native hasher's signature
+    and ignored)."""
     for idx in np.ndindex(rows.shape[:-1]):
         out[idx] = np.frombuffer(
             hashlib.sha256(np.ascontiguousarray(rows[idx])).digest(),
             dtype=np.uint8)
 
 
-def row_hasher() -> Callable[[np.ndarray, np.ndarray], None]:
-    """Bulk shard-row hasher ``fn(rows[..., S], out[..., 32])`` on the
-    host.  hashlib for now; the native SHA-NI engine comes with the port
-    of ``native/gf256.cpp``."""
-    return _hash_rows_hashlib
+def _hash_rows_native(rows: np.ndarray, out: np.ndarray,
+                      nthreads: int = 0) -> None:
+    """The native engine's ``sha256_rows``, for any ``out`` (a strided one,
+    such as the data columns of a digest array, goes through scratch)."""
+    from chunky_bits_tpu_torch.ops.cpu_backend import sha256_rows
+
+    if out.flags.c_contiguous:
+        sha256_rows(rows, out, nthreads)
+        return
+    scratch = np.empty(out.shape, dtype=np.uint8)
+    sha256_rows(rows, scratch, nthreads)
+    out[...] = scratch
+
+
+_ROW_HASHER: Optional[Callable[..., None]] = None
+_ROW_HASHER_LOCK = threading.Lock()
+
+
+def row_hasher() -> Callable[..., None]:
+    """Bulk shard-row hasher ``fn(rows[..., S], out[..., 32],
+    nthreads=0)`` on the host: the native SHA-NI engine (GIL-free;
+    ``nthreads`` caps its threads, and the host pipeline passes 1 per
+    slice), or, where the native codec does not build, a hashlib loop with
+    the same digests, as in the JAX package.  ``row_hasher_engine()``
+    names the one taken; this is the only place with such a stand-in."""
+    global _ROW_HASHER
+    if _ROW_HASHER is None:
+        with _ROW_HASHER_LOCK:
+            if _ROW_HASHER is None:
+                try:
+                    from chunky_bits_tpu_torch.ops.cpu_backend import \
+                        sha256_buf
+
+                    sha256_buf(b"")  # builds the codec now
+                    _ROW_HASHER = _hash_rows_native
+                except ErasureError:
+                    _ROW_HASHER = _hash_rows_hashlib
+    return _ROW_HASHER
+
+
+def row_hasher_engine() -> str:
+    """``"native"`` when ``row_hasher()`` is the SHA-NI engine, else
+    ``"hashlib"``."""
+    return "native" if row_hasher() is _hash_rows_native else "hashlib"
 
 
 def staged_encode_hash(

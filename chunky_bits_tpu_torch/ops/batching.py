@@ -119,14 +119,25 @@ class _CoalescingBatcher:
         """Drain: await the pending collection task and every in-flight
         dispatch, so owners tearing down (end of a read stream, resilver
         run, or event loop) never abandon waiter futures mid-flight.
-        Dispatch errors are delivered to their waiters, not raised here."""
+        Dispatch errors are delivered to their waiters, not raised here.
+
+        A finished dispatch stays in ``_inflight`` until its queued
+        ``discard`` callback runs, and ``gather`` over tasks that are all
+        done completes without yielding to the loop (Python 3.12), so it
+        would never let that callback run: only tasks still running are
+        awaited, and when every task found is done the loop gets one
+        turn instead."""
         while True:
             tasks = set(self._inflight)
             if self._task is not None and not self._task.done():
                 tasks.add(self._task)
             if not tasks:
                 return
-            await asyncio.gather(*tasks, return_exceptions=True)
+            running = [t for t in tasks if not t.done()]
+            if running:
+                await asyncio.gather(*running, return_exceptions=True)
+            else:
+                await asyncio.sleep(0)
 
     def _run_group(self, key: tuple, payloads: list) -> list:
         raise NotImplementedError

@@ -13,9 +13,10 @@ lands, so callers overlap host work (parity hashing) with the rest.
 * device SHA on: one dispatch per block makes parity (``gf_apply``) and
   the digests of all d+p rows (``sha256_rows``), and only parity and 32
   bytes a row come back;
-* device SHA off (the default): parity comes from the card, and host
-  threads hash the data rows during the walk and each parity block as it
-  lands.
+* device SHA off (the default): parity comes from the card, and the
+  shared host pipeline's workers hash the data rows during the walk and
+  each parity block as it lands, with ``ops.backend.row_hasher`` (the
+  native SHA-NI engine).
 
 Device SHA is opt-in: the constructor's ``device_sha`` (an attribute, so
 it may be changed later), or ``$CHUNKY_BITS_TORCH_DEVICE_SHA`` when it is
@@ -36,10 +37,8 @@ without CUDA at construction, and on a failed build or launch.
 
 from __future__ import annotations
 
-import os
 import threading
 from collections import OrderedDict
-from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -48,7 +47,7 @@ import torch
 from chunky_bits_tpu_torch.errors import ErasureError
 from chunky_bits_tpu_torch.ops import gf_kernel, sha256
 from chunky_bits_tpu_torch.ops.backend import (ErasureBackend, as_tensor,
-                                               packed_enabled, row_hasher)
+                                               packed_enabled)
 
 
 class CudaBackend(ErasureBackend):
@@ -90,9 +89,6 @@ class CudaBackend(ErasureBackend):
         self._h2d = torch.cuda.Stream(self.device)
         self._compute = torch.cuda.Stream(self.device)
         self._d2h = torch.cuda.Stream(self.device)
-        self._hash_workers = os.cpu_count() or 1
-        self._pool = ThreadPoolExecutor(self._hash_workers,
-                                        thread_name_prefix="cb-hash")
 
     def device_sha_enabled(self) -> bool:
         if self.device_sha is not None:
@@ -156,28 +152,21 @@ class CudaBackend(ErasureBackend):
             parity, digests = self._walk(shards, block, fused,
                                          [(r, s), (k + r, 32)])
             return parity, digests
-        digests = np.empty((b, k + r, 32), dtype=np.uint8)
-        jobs = self._hash_async(shards, digests[:, :k])
+        from chunky_bits_tpu_torch.parallel.host_pipeline import (
+            get_host_pipeline, join_jobs)
+
+        pipe = get_host_pipeline()
+        data_digests = np.empty((b, k, 32), dtype=np.uint8)
+        parity_digests = np.empty((b, r, 32), dtype=np.uint8)
+        jobs = list(pipe.hash_rows_jobs(shards, data_digests))
 
         def on_block(lo: int, arr: np.ndarray) -> None:
-            jobs.extend(self._hash_async(
-                arr, digests[lo:lo + arr.shape[0], k:]))
+            jobs.extend(pipe.hash_rows_jobs(
+                arr, parity_digests[lo:lo + arr.shape[0]]))
 
         parity = self.apply_matrix(mat, shards, on_block=on_block)
-        for job in jobs:
-            job.result()
-        return parity, digests
-
-    def _hash_async(self, rows: np.ndarray,
-                    out: np.ndarray) -> list[Future]:
-        """Hash ``rows[P, g, S]`` into ``out[P, g, 32]`` on the host
-        threads, split along the parts (hashlib releases the GIL)."""
-        hash_rows = row_hasher()
-        n = rows.shape[0]
-        step = max(1, -(-n // self._hash_workers))
-        return [self._pool.submit(hash_rows, rows[lo:lo + step],
-                                  out[lo:lo + step])
-                for lo in range(0, n, step)]
+        join_jobs(jobs)
+        return parity, np.concatenate([data_digests, parity_digests], axis=1)
 
     def _walk(self, shards: np.ndarray, block: int,
               launch: Callable[[torch.Tensor], Sequence[torch.Tensor]],

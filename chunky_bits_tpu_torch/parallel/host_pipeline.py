@@ -16,9 +16,13 @@ Invariants by construction:
 * a job's result or error is recorded in a ``finally`` before its waiters
   wake, so no waiter hangs on a finished job.
 
+Slicing units (zero-copy): stripes for the host codec's fused
+encode+hash (``NativeBackend.encode_and_hash_into``, ``nthreads=1`` a
+slice, so a ``native:N`` cap keeps meaning total host threads), and shard
+rows for SHA-256 otherwise.
+
 Not ported yet: the runtime sanitizer hook (``sanitize_enabled``), which
-comes with the linter, and the stripe-sliced fused encode+hash
-(``encode_and_hash_into``), which comes with the native codec.
+comes with the linter.
 """
 
 from __future__ import annotations
@@ -357,7 +361,7 @@ class HostPipeline:
         for lo, hi in _ranges(flat.shape[0], self.threads):
             jobs.append(_Job(
                 stage,
-                lambda lo=lo, hi=hi: hasher(flat[lo:hi], oflat[lo:hi]),
+                lambda lo=lo, hi=hi: hasher(flat[lo:hi], oflat[lo:hi], 1),
                 (hi - lo) * flat.shape[-1]))
         for job in jobs:
             self._offer(job)
@@ -370,11 +374,17 @@ class HostPipeline:
         S]``, byte-identical to the direct call.  Blocking: call it from a
         worker thread (``encode_hash`` is the loop-safe wrapper).
 
-        A backend with its own ``encode_and_hash`` (``cuda``, ``torch``)
-        gets the whole batch in one call on the calling thread, so a
-        staged batch reaches the card as the walk's blocks, not as many
-        small dispatches.  Otherwise (``numpy``) the data rows hash on
-        the workers beside the encode, and the parity rows after it."""
+        A device backend with its own ``encode_and_hash`` (``cuda``,
+        ``torch``) gets the whole batch in one call on the calling thread,
+        so a staged batch reaches the card as the walk's blocks, not as
+        many small dispatches.  The host codec (``native``, which has
+        ``encode_and_hash_into``) with B >= 2 is sliced by stripes: each
+        worker runs the fused pass over its range of stripes with
+        ``nthreads=1``, straight into its rows of the shared outputs.
+        Otherwise (``numpy``, one stripe, a code with its own encode math)
+        the data rows hash on the workers beside the encode, and the
+        parity rows after it.  A ``native:N`` backend caps the workers
+        used at N: the knob means total host threads."""
         stacked = np.ascontiguousarray(stacked, dtype=np.uint8)
         if stacked.ndim != 3 or stacked.shape[1] != coder.data:
             raise ErasureError(
@@ -382,21 +392,37 @@ class HostPipeline:
                 f"got {stacked.shape}")
         b, d, s = stacked.shape
         p = coder.parity
-        if b == 0 or s == 0 or getattr(coder.backend, "encode_and_hash",
-                                       None) is not None:
+        into = getattr(coder.backend, "encode_and_hash_into", None)
+        if b == 0 or s == 0 or (into is None and getattr(
+                coder.backend, "encode_and_hash", None) is not None):
             job = _Job("encode", lambda: coder.encode_hash_batch(stacked),
                        b * d * s)
             self._run_job(job)
             return job.wait()
+        cap = getattr(coder.backend, "nthreads", 0) or 0
+        k = self.threads if cap <= 0 else min(self.threads, cap)
+
+        if into is not None and coder.supports_fused_ingest and (
+                b >= 2 or k == 1):
+            parity = np.empty((b, p, s), dtype=np.uint8)
+            digests = np.empty((b, d + p, 32), dtype=np.uint8)
+            self._scatter([
+                _Job("encode",
+                     lambda lo=lo, hi=hi: into(
+                         coder.parity_rows, stacked[lo:hi],
+                         parity[lo:hi], digests[lo:hi], 1),
+                     (hi - lo) * d * s)
+                for lo, hi in _ranges(b, k)])
+            return parity, digests
 
         hasher = _row_hasher()
         flat = stacked.reshape(b * d, s)
         ddig = np.empty((b * d, 32), dtype=np.uint8)
         hash_jobs = [
             _Job("hash",
-                 lambda lo=lo, hi=hi: hasher(flat[lo:hi], ddig[lo:hi]),
+                 lambda lo=lo, hi=hi: hasher(flat[lo:hi], ddig[lo:hi], 1),
                  (hi - lo) * s)
-            for lo, hi in _ranges(b * d, self.threads)
+            for lo, hi in _ranges(b * d, k)
         ]
         enc = _Job("encode", lambda: coder.encode_batch(stacked), b * d * s)
         self._scatter(hash_jobs + [enc])
@@ -408,9 +434,9 @@ class HostPipeline:
         pflat = parity.reshape(b * p, s)
         pjobs = [
             _Job("hash",
-                 lambda lo=lo, hi=hi: hasher(pflat[lo:hi], pdig[lo:hi]),
+                 lambda lo=lo, hi=hi: hasher(pflat[lo:hi], pdig[lo:hi], 1),
                  (hi - lo) * s)
-            for lo, hi in _ranges(b * p, self.threads)
+            for lo, hi in _ranges(b * p, k)
         ]
         self._scatter(pjobs)
         return parity, np.concatenate(
@@ -446,7 +472,7 @@ class HostPipeline:
             self._run_job(job)
 
 
-def _row_hasher() -> Callable[[np.ndarray, np.ndarray], None]:
+def _row_hasher() -> Callable[[np.ndarray, np.ndarray, int], None]:
     from chunky_bits_tpu_torch.ops.backend import row_hasher
 
     return row_hasher()

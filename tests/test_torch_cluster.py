@@ -626,11 +626,20 @@ def test_backend_aliases_resolve_to_the_card(monkeypatch, name, canonical):
 
 @pytest.mark.parametrize("name", ["native", "native:4"])
 def test_native_backend_is_refused_by_name(name):
-    with pytest.raises(ErasureError,
-                       match="not yet ported .*item 4.*'torch' and 'numpy'"):
-        backend.get_backend(name)
-    with pytest.raises(ErasureError, match="C\\+\\+ host codec"):
-        Tunables(backend=name).is_device_backend()
+    """``native`` and ``native:N`` build the port's host codec, a host
+    backend; a thread count that is not a positive integer is refused by
+    name, as in the JAX package."""
+    from chunky_bits_tpu_torch.ops.cpu_backend import NativeBackend
+
+    be = backend.get_backend(name)
+    assert isinstance(be, NativeBackend) and be.name == name
+    assert be.nthreads == (4 if name == "native:4" else 0)
+    assert Tunables(backend=name).is_device_backend() is False
+    for bad in ("native:0", "native:x", "native:"):
+        with pytest.raises(ErasureError, match="bad native thread count"):
+            backend.get_backend(bad)
+        with pytest.raises(ErasureError, match="bad native thread count"):
+            Tunables(backend=bad).is_device_backend()
 
 
 def test_tpu_example_backend_round_trips(tmp_path):

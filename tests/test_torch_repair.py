@@ -1,19 +1,16 @@
 """The port's repair planner (``chunky_bits_tpu_torch/cluster/repair.py``),
 held against ``tests/test_repair.py`` and against the JAX package's planner.
 
-The assertions of ``tests/test_repair.py`` run on the ``torch`` and
-``numpy`` backends (its ``native`` and ``jax`` legs wait for the port's
-native codec, ROADMAP Queue A item 4), with exact helper-byte counts and
-every byte of the pass in the token bucket's accounting.  One counter
-differs from the JAX package by design: without a profiler the JAX
-package verifies local and slab replicas through its native fused
-read+hash, so its planner re-reads a corrupt victim to localize the damage
-(``bytes_localized`` = the chunk); the port verifies on the host pipeline
-and hands the corrupt bytes over, so ``bytes_localized`` is 0 and the
-token bucket sees one chunk read fewer.  With a profiler attached both
-packages take the generic path and every counter is equal
-(``test_torch_scrub.py``).  The rebuilt bytes, plan kinds and totals are
-the same either way.  Time is the fake clock of ``test_torch_scrub.py``.
+The assertions of ``tests/test_repair.py`` run on the ``torch``, ``numpy``
+and ``native`` backends, with exact helper-byte counts and every byte of
+the pass in the token bucket's accounting.  Without a profiler both
+packages verify local and slab replicas through the native fused
+read+hash, so the planner re-reads a corrupt victim to localize the damage
+(``bytes_localized`` = the chunk), and every scrub and repair counter
+equals the JAX package's (``test_counters_equal_the_jax_package_without_a_
+profiler``); with a profiler attached both take the generic path, whose
+verify read hands the corrupt bytes over (``bytes_localized`` 0).  Time is
+the fake clock of ``test_torch_scrub.py``.
 """
 
 import asyncio
@@ -165,7 +162,7 @@ def test_decode_plan_reads_d_blocks_not_d_chunks(tmp_path, packed):
         assert rs["plans_decode"] == 1 and rs["plans_copy"] == 0
         assert rs["helper_bytes_decode"] == 3 * 4096
         assert rs["helper_bytes_replica"] == 0
-        assert rs["bytes_localized"] == 0  # the verify read's bytes
+        assert rs["bytes_localized"] == CHUNK  # one victim re-read
         assert rs["bytes_rebuilt"] == 4096
         assert rs["bytes_written"] == CHUNK
         assert rs["helper_bytes_per_rebuilt_byte"] == 3.0
@@ -310,7 +307,7 @@ def test_old_refs_without_trees_repair_as_before(tmp_path):
     run(main())
 
 
-@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("backend", ["torch", "numpy", "native"])
 def test_partial_rebuild_byte_identity_fuzz(tmp_path, backend):
     """Random damage repaired three ways (localized, whole-chunk, legacy
     resilver) converges every replica to the same bytes."""
@@ -407,7 +404,7 @@ def pm_cluster(tmp_path, d=5, p=4, chunk_log2=14, packed=False,
         n_nodes=d + p, code="pm-msr", tunables={"backend": backend}))
 
 
-@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("backend", ["torch", "numpy", "native"])
 def test_msr_plan_regenerates_single_loss_at_two_x(tmp_path, backend):
     """A pm-msr part losing ONE chunk regenerates from d' = 2(d-1)
     beta-sized projections: exactly 2 x chunksize of helper bytes where

@@ -429,12 +429,13 @@ def _damage(ref_objs):
             os.remove(loc.target)
 
 
-@pytest.mark.parametrize("code", ["rs", "pm-msr"])
-def test_scrub_stats_equal_the_jax_package(tmp_path, monkeypatch, code):
-    """One cluster (3 slab + 2 path destinations, meta-log metadata,
-    16 KiB chunks, 4 KiB digest blocks), damaged the same way in two
-    copies and scrubbed once by each package with a profiler attached:
-    equal scrub and repair stats, equal repaired bytes."""
+def _scrub_both(tmp_path, monkeypatch, code, profiled, backend="torch"):
+    """One cluster (3 slab + 2 path destinations, meta-log metadata, 16
+    KiB chunks, 4 KiB digest blocks), damaged the same way in two copies
+    and scrubbed once by each package (the JAX package on ``numpy``, the
+    port on ``backend``), with a profiler attached or not.  Returns (the
+    port's stats, the JAX package's, the port's cluster, the blobs); the
+    working directory is the JAX copy's on return."""
     from chunky_bits_tpu.cluster import Cluster as JaxCluster
     from chunky_bits_tpu.cluster.scrub import ScrubDaemon as JaxDaemon
     from chunky_bits_tpu.file.profiler import new_profiler as jax_profiler
@@ -452,7 +453,8 @@ def test_scrub_stats_equal_the_jax_package(tmp_path, monkeypatch, code):
     def scrub(cluster, daemon_cls, profiler):
         refs = [run(cluster.get_file_ref(f"o{i}")) for i in range(5)]
         _damage(refs)
-        daemon = daemon_cls(cluster, bytes_per_sec=0, profiler=profiler)
+        daemon = daemon_cls(cluster, bytes_per_sec=0,
+                            profiler=profiler if profiled else None)
         stats = run(daemon.run_once()).to_obj()
         stats.pop("last_pass_seconds")
         return stats
@@ -461,8 +463,27 @@ def test_scrub_stats_equal_the_jax_package(tmp_path, monkeypatch, code):
         code=code, meta="meta-log", backend="numpy")), JaxDaemon,
         jax_profiler()[0])
     monkeypatch.chdir(b)
-    port = Cluster.from_obj(_relative_spec(code=code, meta="meta-log"))
+    port = Cluster.from_obj(_relative_spec(code=code, meta="meta-log",
+                                           backend=backend))
     ours = scrub(port, ScrubDaemon, new_profiler()[0])
+    for name, data in blobs.items():
+        assert run(read_back(port, name)) == data
+        assert run(verify_valid(port, name))
+    monkeypatch.chdir(a)
+    jax = JaxCluster.from_obj(_relative_spec(code=code, meta="meta-log",
+                                             backend="numpy"))
+    for name, data in blobs.items():
+        assert run(read_back(jax, name)) == data
+    return ours, theirs, port, blobs
+
+
+@pytest.mark.parametrize("code", ["rs", "pm-msr"])
+def test_scrub_stats_equal_the_jax_package(tmp_path, monkeypatch, code):
+    """With a profiler attached both packages verify on the generic path:
+    equal scrub and repair stats, equal repaired bytes, and the verify
+    read's bytes localize the damage (``bytes_localized`` 0)."""
+    ours, theirs, _port, _blobs = _scrub_both(tmp_path, monkeypatch, code,
+                                              profiled=True)
     assert ours == theirs
     rep = ours["repair"]
     assert ours["corrupt"] == 4 and ours["unavailable"] == 1
@@ -475,14 +496,29 @@ def test_scrub_stats_equal_the_jax_package(tmp_path, monkeypatch, code):
             4 * 3 * 4096 + 3 * ((3 * (1 << 14) - 4 * 99) // 3)
     else:
         assert rep["plans_msr"] == 5
-    for name, data in blobs.items():
-        assert run(read_back(port, name)) == data
-        assert run(verify_valid(port, name))
-    monkeypatch.chdir(a)
-    jax = JaxCluster.from_obj(_relative_spec(code=code, meta="meta-log",
-                                             backend="numpy"))
-    for name, data in blobs.items():
-        assert run(read_back(jax, name)) == data
+
+
+@pytest.mark.parametrize("backend", ["torch", "native"])
+@pytest.mark.parametrize("code", ["rs", "pm-msr"])
+def test_scrub_stats_equal_the_jax_package_without_a_profiler(
+        tmp_path, monkeypatch, code, backend):
+    """Without a profiler both packages hash local and slab replicas in
+    the native fused read+hash, so the planner re-reads each corrupt
+    victim to localize its damage: every scrub and repair counter,
+    ``bytes_localized`` and the bytes verified included, equals the JAX
+    package's."""
+    ours, theirs, _port, _blobs = _scrub_both(
+        tmp_path, monkeypatch, code, profiled=False, backend=backend)
+    assert ours == theirs
+    rep = ours["repair"]
+    assert ours["corrupt"] == 4 and ours["unavailable"] == 1
+    assert ours["repaired"] == 5 and ours["repair_failures"] == 0
+    if code == "rs":
+        # each of the four flipped chunks of objects 0-3 re-read whole
+        assert rep["bytes_localized"] == sum(
+            (3 * (1 << 14) - 99 * i + 2) // 3 for i in range(4))
+        assert rep["helper_bytes_decode"] == \
+            4 * 3 * 4096 + 3 * ((3 * (1 << 14) - 4 * 99) // 3)
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -2,9 +2,9 @@
 its ``slab:`` locations, held against ``tests/test_slab.py`` and against the
 JAX package's store.
 
-The assertions of ``tests/test_slab.py`` run on the ``torch`` and ``numpy``
-backends (its ``native`` and ``jax`` legs wait for the port's native codec,
-ROADMAP Queue A item 4; the ``jax`` name resolves to the card).  The golden
+The assertions of ``tests/test_slab.py`` run on the ``torch``, ``numpy``
+and ``native`` backends (its ``jax`` leg is the card's: the name resolves
+to ``cuda``).  The golden
 ``slab_placement.yaml`` must come out byte-equal from the port's writer.  A
 store written by either package opens and reads back through the other,
 journal lines and extents included, and appends from two processes (one
@@ -481,7 +481,7 @@ def test_cluster_writes_the_slab_placement_golden(tmp_path, monkeypatch):
     assert gen.dump(ref.to_obj()) == golden("slab_placement")
 
 
-@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("backend", ["torch", "numpy", "native"])
 def test_byte_identity_vs_path_destinations(tmp_path, backend):
     payload = payload_of(40000, 5)
 
