@@ -4,6 +4,8 @@
     python3 chip_smoke.py              # one card, every phase below
     python3 chip_smoke.py --all-gpus   # the mesh backends over every card
 
+(``--multihost-worker`` is the child process of the multi-host step.)
+
 Builds the five kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
 at first use, into ``chunky_bits_tpu_torch/_build/``; the host codec
 ``gf256.cpp`` by g++ beside them) and holds each
@@ -83,7 +85,22 @@ drives the main paths:
   a ``backend: native:4`` YAML (the reference equal to the ``cuda``
   YAML's); and BASELINE.md config 12's grid on ``native``, the table
   kernels and the scheduled-XOR engine each byte-identical to numpy, at
-  host GiB/s of the card box's CPU.
+  host GiB/s of the card box's CPU;
+* the ``serving_opt_in`` group, the serving plane's opt-in parts and the
+  multi-host bootstrap: BASELINE.md config 19's QoS A/B through a
+  gateway on ``cuda`` (d=3 p=2, 64 KiB chunks, ``max_concurrent_gets``
+  4, 16 flooding clients of tenant ``other`` and a paced victim tenant
+  of weight 4 reading 512 KiB 40 times; QoS off, then on; the ON leg
+  sheds no victim read and its ``cb_qos_*`` samples equal the
+  scheduler's ``stats()``); config 15's engine-off overhead (400 hot
+  GETs a leg, the SLO engine off, on, on, off); a live ``availability``
+  alert (short windows, one GET body at a time, a flood of sheds: it
+  fires within ``slow_s`` + 1 s, /alerts, /metrics, /stats and ``stats
+  --json`` agree, and it resolves under healthy GETs); and two processes
+  joined by ``init_multihost`` over gloo, each encoding its
+  ``partition_parts`` slice of 256 config-2 parts on ``local_mesh(sp=2)``
+  over 4 logical devices of the card, the parity equal to the
+  single-process ``cuda`` coder's.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -1141,13 +1158,15 @@ def same_file(a: str, b: str) -> bool:
 def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs",
                  cache_bytes: int = 0, locations=None, slabs: int = 0,
                  meta: str = "path", block: int = 0,
-                 scrub_rate: int = 0) -> str:
+                 scrub_rate: int = 0, extra=None) -> str:
     """A cluster of d+p destinations under ``root`` (the first ``slabs``
     of them ``slab:`` stores, the rest ``path``; or ``locations``), a
     ``meta`` metadata store (``path`` or ``meta-log``) and one profile of
     ``geo``; ``backend`` None leaves it out (the port's default backend),
-    and ``cache_bytes``, ``block`` (``repair_block_bytes``) and
-    ``scrub_rate`` (``scrub_bytes_per_sec``) above 0 set those tunables."""
+    ``cache_bytes``, ``block`` (``repair_block_bytes``) and
+    ``scrub_rate`` (``scrub_bytes_per_sec``) above 0 set those tunables,
+    and ``extra`` adds tunables as given (``slo_eval_s``, ``slo``,
+    ``qos``)."""
     import yaml
 
     dirs = locations
@@ -1173,6 +1192,7 @@ def cluster_yaml(root: str, geo: Geometry, backend, code: str = "rs",
                        ("scrub_bytes_per_sec", scrub_rate)):
         if value:
             tunables[key] = value
+    tunables.update(extra or {})
     if tunables:
         spec["tunables"] = tunables
     path = os.path.join(root, "cluster.yaml")
@@ -2634,6 +2654,561 @@ def phase_host_codec(blob: bytes, path, counts, be) -> dict:
     return expected
 
 
+# ---- the serving_opt_in group ----
+
+#: BASELINE.md config 19 (bench.py:3543ff, BASELINE.md:721-765): d=3 p=2,
+#: 64 KiB chunks, max_concurrent_gets 4, a read cache far below the object
+#: (every GET fetches and verifies), 16 flooding keep-alive clients of
+#: tenant "other", a victim tenant (weight 4, by X-Api-Key) issuing 40
+#: sequential 512 KiB reads 50 ms apart; clients back off 20 ms on a 503
+C19_CAP, C19_ANTAGONISTS, C19_READS = 4, 16, 40
+C19_OBJECT, C19_CACHE = 512 << 10, 1 << 14
+C19_SATURATE_S, C19_PACE_S, C19_BACKOFF_S = 2.0, 0.05, 0.02
+C19_VICTIM_KEY = "victim-key"
+#: config 15's engine-off overhead leg (BASELINE.md:544-561): 400
+#: sequential hot 64 KiB GETs a leg, legs off, on, on, off, the engine
+#: ticking every 0.05 s when on
+C15_GETS, C15_OBJECT, C15_EVAL_S = 400, 64 << 10, 0.05
+#: the live alert: short windows so that availability fires and resolves
+#: within seconds; one GET body at a time, so a burst sheds
+ALERT_SLO = {"fast_s": 1.0, "slow_s": 3.0, "clear_s": 1.0}
+ALERT_EVAL_S, ALERT_FLOOD, ALERT_BACKOFF_S = 0.05, 8, 0.005
+#: multi-host on one card: 256 parts of d=10 p=4 at 1 MiB over two
+#: processes, each on local_mesh(sp=2) of 4 logical devices of cuda:0,
+#: 32 parts a block
+MH_PARTS, MH_BLOCK, MH_DEVICES, MH_PROCESSES = 256, 32, 4, 2
+
+
+def mh_part(index: int) -> np.ndarray:
+    """Part ``index`` of the multi-host batch, uint8 [D, CHUNK], made from
+    (seed, part index) alone, so every process makes only its own."""
+    rng = np.random.default_rng((SEED, index))
+    return np.frombuffer(rng.bytes(D * CHUNK), dtype=np.uint8).reshape(
+        D, CHUNK)
+
+
+def multihost_worker(argv: list[str]) -> int:
+    """One process of the multi-host step (``--multihost-worker ADDRESS
+    WORLD RANK OUT``): join the gloo group through ``init_multihost``,
+    encode this process's ``partition_parts`` slice through
+    ``encode_step_sharded`` on ``local_mesh(sp=2)``, write its parity to
+    ``OUT/rank<i>.npy``, exchange the summaries over the group and print
+    this process's as one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix
+    from chunky_bits_tpu_torch.parallel import (encode_step_sharded,
+                                                init_multihost, local_mesh,
+                                                partition_parts)
+
+    address, world, rank, out = argv
+    index, count = init_multihost(address, int(world), int(rank),
+                                  timeout_s=300)
+    try:
+        start, stop = partition_parts(MH_PARTS)
+        mesh = local_mesh(sp=2)
+        enc = matrix.build_encode_matrix(D, P)
+        parity = np.lib.format.open_memmap(
+            os.path.join(out, f"rank{index}.npy"), mode="w+",
+            dtype=np.uint8, shape=(stop - start, P, CHUNK))
+        gf_kernel.LAUNCHES = gf_kernel.PACKED_LAUNCHES = 0
+        checksum, blocks, encode_s, make_s = 0, 0, 0.0, 0.0
+        for lo in range(start, stop, MH_BLOCK):
+            hi = min(lo + MH_BLOCK, stop)
+            t0 = time.perf_counter()
+            data = np.stack([mh_part(i) for i in range(lo, hi)])
+            t1 = time.perf_counter()
+            got, cs = encode_step_sharded(mesh, enc, data)
+            encode_s += time.perf_counter() - t1
+            make_s += t1 - t0
+            parity[lo - start:hi - start] = got
+            checksum = (checksum + cs) & 0xFFFFFFFF
+            blocks += 1
+        parity.flush()
+        del parity
+        mine = {"rank": index, "world": count, "start": start,
+                "stop": stop, "blocks": blocks, "checksum": checksum,
+                "gf_apply": gf_kernel.LAUNCHES,
+                "gf_apply_packed": gf_kernel.PACKED_LAUNCHES,
+                "devices": int(mesh.devices.size),
+                "device": str(mesh.devices.flat[0].device),
+                "backend": dist.get_backend(),
+                "encode_s": encode_s, "make_s": make_s,
+                "gpu": torch.cuda.get_device_name(0)}
+        gathered = [None] * count
+        dist.all_gather_object(gathered, mine)
+        mine["gathered_ranks"] = [g["rank"] for g in gathered]
+        print(json.dumps(mine), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_serving_opt_in(path, counts, be, tp_rec) -> dict:
+    """The serving_opt_in group: the serving plane's opt-in parts on the
+    card.  (1) BASELINE config 19's QoS A/B: a gateway on ``cuda`` with
+    QoS off, then on, under a 16-client flood of tenant ``other`` and a
+    paced victim tenant, every victim body held against its source; the
+    ON leg must shed no victim read, and its ``cb_qos_*`` samples on
+    /metrics must equal the scheduler's ``stats()``.  (2) config 15's
+    engine-off overhead: two gateways on ``cuda`` over one tree, the SLO
+    engine off and on (0.05 s ticks), 400 sequential hot GETs a leg, legs
+    off, on, on, off.  (3) a live alert: a gateway with short SLO windows
+    and one GET body at a time; a flood of concurrent GETs sheds 503s, and
+    ``availability`` must fire within ``slow_s`` + 1 s, agree on
+    /alerts, /metrics, /stats and ``python -m chunky_bits_tpu_torch stats
+    --json``, then resolve after its hold-down under healthy GETs with one
+    entry in its history.  (4) multi-host on one card: two processes join
+    a gloo group through ``init_multihost`` and each encodes its
+    ``partition_parts`` slice of 256 config-2 parts on ``local_mesh(sp=2)``
+    over 4 logical devices; the concatenated parity must equal the
+    single-process ``cuda`` coder's, a sample numpy's, each child's
+    checksum its slice's and its K1 launches its blocks times its devices.
+    Each in-process step is a path of its own, its K1 launches checked
+    against the ``cuda`` backend's recorded dispatches.  Returns the
+    expected launches of its paths."""
+    import gc
+    import socket
+    import tempfile
+
+    from chunky_bits_tpu_torch.cluster import Cluster
+    from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
+                                                        environ_without)
+    from chunky_bits_tpu_torch.file.profiler import percentile
+    from chunky_bits_tpu_torch.gateway import serve
+    from chunky_bits_tpu_torch.obs import metrics as obs_metrics
+    from chunky_bits_tpu_torch.ops.backend import get_backend, get_coder
+    from chunky_bits_tpu_torch.utils.yamlio import yaml_load
+
+    expected = {}
+    rec = ApplyRecorder(be)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def step(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = path(name, fn, *args)
+        dt = time.perf_counter() - t0
+        want, mesh = rec.expected(), tp_rec.expected()
+        expected[name] = {k: want[k] + mesh[k] for k in KERNELS}
+        log(f"  {name}: {dt:.2f} s, K1 launches {counts[name]['gf_apply']}")
+        return out
+
+    def start_gateway(conf: str, gets: int) -> ServerThread:
+        with open(conf) as f:
+            cluster = Cluster.from_obj(yaml_load(f.read()))
+
+        def run(on_ready):
+            return serve(cluster, "127.0.0.1", 0, max_concurrent_gets=gets,
+                         on_ready=on_ready)
+
+        server = ServerThread(run, "gateway")
+        server.cluster = cluster
+        return server
+
+    def put(port: int, name: str, data: bytes) -> None:
+        status, _h, resp = http_request(port, "PUT", f"/{name}",
+                                        body_parts=(data,),
+                                        body_len=len(data))
+        resp.read()
+        assert status == 200, (name, status)
+
+    def get_json(port: int, url_path: str) -> dict:
+        status, _h, resp = http_request(port, "GET", url_path)
+        assert status == 200, (url_path, status)
+        return json.loads(resp.read())
+
+    rng = np.random.default_rng(SEED + 19)
+    with tempfile.TemporaryDirectory(prefix="cb-slo-") as root:
+        # ---- (1) BASELINE config 19's QoS A/B ----
+        payload = rng.integers(0, 256, C19_OBJECT, dtype=np.uint8).tobytes()
+        legs = {}
+        for qos_on in (False, True):
+            leg = "on" if qos_on else "off"
+            top = os.path.join(root, f"c19{leg}")
+            os.makedirs(top)
+            conf = cluster_yaml(top, CONFIG9, "cuda", cache_bytes=C19_CACHE,
+                                extra={"qos": {
+                                    "enabled": qos_on,
+                                    "tenants": {"victim": {
+                                        "weight": 4,
+                                        "keys": [C19_VICTIM_KEY]}}}})
+            gw = start_gateway(conf, C19_CAP)
+            port = gw.port
+            step(f"c19_put_{leg}", put, port, "obj", payload)
+
+            async def flood() -> dict:
+                state = {"stop": False, "ok": 0, "shed": 0,
+                         "victim_shed": 0}
+
+                async def fetch_ok(conn, extra: str, victim: bool):
+                    t0 = time.perf_counter()
+                    while True:
+                        status, body, _e = await conn.get("/obj", extra)
+                        if status == 200:
+                            return time.perf_counter() - t0, body
+                        assert status == 503, status
+                        state["shed"] += 1
+                        state["victim_shed"] += victim
+                        await asyncio.sleep(C19_BACKOFF_S)
+
+                async def antagonist() -> None:
+                    conn = await MiniConn(port).open()
+                    try:
+                        j = 0
+                        while not state["stop"]:
+                            _w, body = await fetch_ok(conn, "", False)
+                            state["ok"] += 1
+                            j += 1
+                            if j % 8 == 0:
+                                assert body == payload, "antagonist body"
+                    finally:
+                        await conn.close()
+
+                tasks = [asyncio.ensure_future(antagonist())
+                         for _ in range(C19_ANTAGONISTS)]
+                await asyncio.sleep(C19_SATURATE_S)
+                lat = []
+                conn = await MiniConn(port).open()
+                t_open = time.perf_counter()
+                try:
+                    for _ in range(C19_READS):
+                        wall, body = await fetch_ok(
+                            conn, f"X-Api-Key: {C19_VICTIM_KEY}\r\n", True)
+                        assert body == payload, "victim body differs"
+                        state["ok"] += 1
+                        lat.append(wall)
+                        await asyncio.sleep(C19_PACE_S)
+                finally:
+                    window = time.perf_counter() - t_open
+                    state["stop"] = True
+                    done = await asyncio.gather(*tasks,
+                                                return_exceptions=True)
+                    await conn.close()
+                errors = [e for e in done if e is not None]
+                assert not errors, errors[:2]
+                lat.sort()
+                return {"victim_p50_ms": percentile(lat, 50) * 1e3,
+                        "victim_p99_ms": percentile(lat, 99) * 1e3,
+                        "rps": state["ok"] / window, "ok": state["ok"],
+                        "sheds": state["shed"],
+                        "victim_sheds": state["victim_shed"]}
+
+            got = step(f"c19_qos_{leg}", lambda: asyncio.run(flood()))
+            fams = parse_metrics(port)
+            stats = get_json(port, "/stats")
+            scheds = obs_metrics.get_registry().sources("qos")
+            if qos_on:
+                assert len(scheds) == 1, scheds
+                want = scheds[0].stats()
+                assert stats["qos"] == want.to_obj(), (stats["qos"], want)
+
+                def sample(name: str, **labels) -> float:
+                    hits = [v for _n, lab, v in fams[name]["samples"]
+                            if lab == labels]
+                    assert len(hits) == 1, (name, labels, hits)
+                    return hits[0]
+
+                for row in want.rows:
+                    for key in ("admitted", "shed", "bytes",
+                                "throttle_waits", "queued"):
+                        name = (f"cb_qos_{key}" if key == "queued"
+                                else f"cb_qos_{key}_total")
+                        assert sample(name, tenant=row.tenant) == \
+                            getattr(row, key), (name, row)
+                assert sample("cb_qos_pressure") == want.pressure
+                assert sample("cb_qos_hedge_suppressed_total") == \
+                    want.hedge_suppressed
+                assert sample("cb_qos_hedge_conserved_total") == \
+                    want.hedge_conserved
+                assert got["victim_sheds"] == 0, got
+                rows = {r.tenant: r for r in want.rows}
+                got["admitted"] = {t: r.admitted for t, r in rows.items()}
+                got["queue_peak"] = {t: r.queue_peak
+                                     for t, r in rows.items()}
+                log(f"  cb_qos_* on /metrics equal the scheduler's stats(): "
+                    f"{want}")
+            else:
+                assert not scheds and stats["qos"] == {"enabled": False}
+                assert not any(n.startswith("cb_qos_") for n in fams)
+            legs[leg] = got
+            log(f"  config 19 QoS {leg}: victim p50 "
+                f"{got['victim_p50_ms']:.2f} ms p99 "
+                f"{got['victim_p99_ms']:.2f} ms, {got['rps']:.1f} "
+                f"requests/s, {got['sheds']} sheds ({got['victim_sheds']} "
+                f"of the victim), {got['ok']} bodies")
+            gw.stop()
+            del gw
+        ratio = legs["off"]["victim_p99_ms"] / legs["on"]["victim_p99_ms"]
+        log(f"config 19 on the card: victim p99 off/on {ratio:.2f}x (the "
+            f"CPU run's bar: 5x, recorded, not gated); aggregate "
+            f"requests/s on/off "
+            f"{legs['on']['rps'] / legs['off']['rps']:.3f}; every victim "
+            f"body equal to its source in both legs; {json.dumps(legs)}")
+        stamp("serving_opt_in config 19")
+
+        # ---- (2) config 15's engine-off overhead ----
+        top = os.path.join(root, "c15")
+        os.makedirs(top)
+        conf_off = cluster_yaml(top, CONFIG9, "cuda", cache_bytes=GW_CACHE)
+        with open(conf_off) as f:
+            spec = yaml_load(f.read())
+        spec["tunables"]["slo_eval_s"] = C15_EVAL_S
+        conf_on = os.path.join(top, "cluster-slo.yaml")
+        with open(conf_on, "w") as f:
+            json.dump(spec, f)
+        hot = rng.integers(0, 256, C15_OBJECT, dtype=np.uint8).tobytes()
+        confs = {"off": conf_off, "on": conf_on}
+
+        async def sequential(port: int) -> float:
+            conn = await MiniConn(port).open()
+            try:
+                status, body, _e = await conn.get("/hot")
+                assert status == 200 and body == hot
+                t0 = time.perf_counter()
+                for _ in range(C15_GETS):
+                    status, body, _e = await conn.get("/hot")
+                    assert status == 200 and body == hot
+                return C15_GETS / (time.perf_counter() - t0)
+            finally:
+                await conn.close()
+
+        # one gateway a leg, so an off leg shares its interpreter with no
+        # engine ticking
+        rates, evals = [], 0
+        for i, leg in enumerate(("off", "on", "on", "off")):
+            gw = start_gateway(confs[leg], 256)
+            if i == 0:
+                step("c15_put", put, gw.port, "hot", hot)
+            rps = step(f"c15_engine_{leg}{i}",
+                       lambda: asyncio.run(sequential(gw.port)))
+            alerts = get_json(gw.port, "/alerts")
+            if leg == "on":
+                evals += alerts["evaluations"]
+                assert alerts["evaluations"] > 0, alerts
+            else:
+                assert alerts == {"enabled": False}, alerts
+            gw.stop()
+            del gw
+            rates.append((leg, rps))
+            log(f"  config 15 engine {leg}: {rps:.1f} requests/s")
+        off = statistics.mean(r for leg, r in rates if leg == "off")
+        on = statistics.mean(r for leg, r in rates if leg == "on")
+        log(f"config 15 overhead on the card: off {off:.1f}, on {on:.1f} "
+            f"requests/s, on/off {on / off:.3f} ({evals} evaluations in "
+            f"the on legs' gateways)")
+        stamp("serving_opt_in config 15")
+
+        # ---- (3) a live alert ----
+        gc.collect()  # drop earlier groups' scoreboards from the registry
+        top = os.path.join(root, "alert")
+        os.makedirs(top)
+        conf = cluster_yaml(top, CONFIG9, "cuda", extra={
+            "slo_eval_s": ALERT_EVAL_S, "slo": dict(ALERT_SLO),
+            "qos": {"enabled": False}})
+        gw = start_gateway(conf, 1)
+        port = gw.port
+        step("alert_put", put, port, "obj", payload)
+        url = f"http://127.0.0.1:{port}"
+
+        def availability() -> dict:
+            alerts = get_json(port, "/alerts")
+            return next(a for a in alerts["alerts"]
+                        if a["rule"] == "availability"), alerts
+
+        async def alert_run() -> dict:
+            out = {}
+            conn = await MiniConn(port).open()
+            t_end = time.perf_counter() + ALERT_SLO["slow_s"]
+            while time.perf_counter() < t_end:  # healthy traffic first
+                status, body, _e = await conn.get("/obj")
+                assert status == 200 and body == payload
+            row, _a = await asyncio.to_thread(availability)
+            assert row["state"] == "inactive", row
+            state = {"stop": False, "sheds": 0, "ok": 0}
+
+            async def flooder() -> None:
+                c = await MiniConn(port).open()
+                try:
+                    while not state["stop"]:
+                        status, body, _e = await c.get("/obj")
+                        if status == 503:
+                            state["sheds"] += 1
+                            await asyncio.sleep(ALERT_BACKOFF_S)
+                        else:
+                            assert status == 200 and body == payload
+                            state["ok"] += 1
+                finally:
+                    await c.close()
+
+            t_burst = time.perf_counter()
+            tasks = [asyncio.ensure_future(flooder())
+                     for _ in range(ALERT_FLOOD)]
+            try:
+                limit = ALERT_SLO["slow_s"] + 1.0
+                while True:
+                    row, alerts = await asyncio.to_thread(availability)
+                    if row["state"] == "firing":
+                        break
+                    assert time.perf_counter() - t_burst < limit, \
+                        ("availability did not fire in time", row, state)
+                    await asyncio.sleep(0.05)
+                out["detect_s"] = time.perf_counter() - t_burst
+                out["value_fast"] = row["value_fast"]
+                # every surface agrees while the flood goes on
+                sheds = state["sheds"]
+                fams = await asyncio.to_thread(parse_metrics, port)
+                gauge = [v for _n, lab, v in
+                         fams["cb_alerts_state"]["samples"]
+                         if lab.get("rule") == "availability"]
+                stats = await asyncio.to_thread(get_json, port, "/stats")
+                cli = await asyncio.to_thread(
+                    subprocess.run,
+                    [sys.executable, "-m", "chunky_bits_tpu_torch",
+                     "--config", os.devnull, "stats", "--json", url],
+                    cwd=here, env=environ_without(BACKEND_ENV), check=True,
+                    timeout=300, capture_output=True, text=True)
+                blob = json.loads(cli.stdout)
+                row_after, _a = await asyncio.to_thread(availability)
+                assert 2 in gauge, gauge
+                assert "availability" in alerts["firing"], alerts["firing"]
+                assert "availability" in stats["slo"]["firing"], \
+                    stats["slo"]
+                assert "availability" in blob["alerts"]["firing"], \
+                    blob["alerts"]["firing"]
+                assert [a["state"] for a in blob["alerts"]["alerts"]
+                        if a["rule"] == "availability"] == ["firing"]
+                assert row_after["state"] == "firing", row_after
+                five = [v for _n, lab, v in
+                        fams["cb_request_total"]["samples"]
+                        if lab.get("status_class") == "5xx"]
+                assert sum(five) >= sheds > 0, (five, sheds)
+            finally:
+                state["stop"] = True
+                done = await asyncio.gather(*tasks, return_exceptions=True)
+            assert not [e for e in done if e is not None], done
+            out["flood"] = dict(state)
+            out["flood_s"] = time.perf_counter() - t_burst
+            t_stop = time.perf_counter()
+            healthy = 0
+            while True:
+                status, body, _e = await conn.get("/obj")
+                assert status == 200 and body == payload
+                healthy += 1
+                row, alerts = await asyncio.to_thread(availability)
+                if row["state"] == "inactive":
+                    break
+                assert time.perf_counter() - t_stop < 30, row
+            out["resolve_s"] = time.perf_counter() - t_stop
+            out["healthy_gets"] = healthy
+            await conn.close()
+            mine = [e for e in alerts["history"]
+                    if e["rule"] == "availability"]
+            assert len(mine) == 1 and mine[0]["resolved_at"] is not None, \
+                alerts["history"]
+            out["history"] = alerts["history"]
+            out["fired_count"] = row["fired_count"]
+            return out
+
+        got = step("alert_availability", lambda: asyncio.run(alert_run()))
+        gw.stop()
+        del gw
+        log(f"live alert on the card (slo_eval_s {ALERT_EVAL_S}, "
+            f"{ALERT_SLO}, max_concurrent_gets 1): availability firing "
+            f"{got['detect_s']:.2f} s after the flood began (limit "
+            f"{ALERT_SLO['slow_s'] + 1.0:.1f} s), fast-window 5xx ratio "
+            f"{got['value_fast']}; /alerts, cb_alerts_state, /stats and "
+            f"`stats --json` agreed; {got['flood']['sheds']} sheds in "
+            f"{got['flood_s']:.2f} s of flood; resolved "
+            f"{got['resolve_s']:.2f} s after it under "
+            f"{got['healthy_gets']} healthy GETs; history "
+            f"{got['history']}")
+        stamp("serving_opt_in live alert")
+
+        # ---- (4) multi-host on one card ----
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            address = f"127.0.0.1:{sock.getsockname()[1]}"
+        out_dir = os.path.join(root, "mh")
+        os.makedirs(out_dir)
+        env = dict(environ_without(BACKEND_ENV),
+                   CHUNKY_BITS_TORCH_VIRTUAL_DEVICES=str(MH_DEVICES))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--multihost-worker", address, str(MH_PROCESSES), str(r),
+             out_dir], cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for r in range(MH_PROCESSES)]
+        reports = []
+        try:
+            for proc in procs:
+                stdout, stderr = proc.communicate(timeout=300)
+                assert proc.returncode == 0, stderr[-3000:]
+                reports.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        enc = get_coder(D, P).encode_matrix
+        spans = [(r["start"], r["stop"]) for r in reports]
+        assert spans == [(0, MH_PARTS // 2), (MH_PARTS // 2, MH_PARTS)], spans
+        for r in reports:
+            n = r["stop"] - r["start"]
+            assert r["world"] == MH_PROCESSES and r["backend"] == "gloo", r
+            assert r["gathered_ranks"] == list(range(MH_PROCESSES)), r
+            assert r["blocks"] == -(-n // MH_BLOCK), r
+            assert r["devices"] == MH_DEVICES and r["device"] == "cuda:0", r
+            assert r["gf_apply"] == r["blocks"] * MH_DEVICES, r
+            assert r["gf_apply_packed"] == 0, r
+
+        def reference() -> None:
+            coder = get_coder(D, P)
+            numpy_be = get_backend("numpy")
+            parity = [np.load(os.path.join(out_dir, f"rank{r}.npy"),
+                              mmap_mode="r") for r in range(MH_PROCESSES)]
+            sums = [0] * MH_PROCESSES
+            for lo in range(0, MH_PARTS, KERNEL_PARTS):
+                hi = min(lo + KERNEL_PARTS, MH_PARTS)
+                data = np.stack([mh_part(i) for i in range(lo, hi)])
+                want = coder.encode_batch(data)
+                for i in range(lo, hi):
+                    r = next(k for k, (a, b) in enumerate(spans)
+                             if a <= i < b)
+                    assert np.array_equal(parity[r][i - spans[r][0]],
+                                          want[i - lo]), i
+                    sums[r] += int(want[i - lo].sum(dtype=np.uint64))
+                for j in (0, hi - lo - 1):
+                    assert np.array_equal(
+                        numpy_be.apply_matrix(enc[D:], data[j:j + 1])[0],
+                        want[j]), lo + j
+            for r, rep in enumerate(reports):
+                assert rep["checksum"] == sums[r] & 0xFFFFFFFF, (r, rep)
+
+        step("multihost_reference", reference)
+        for r in reports:
+            nbytes = (r["stop"] - r["start"]) * D * CHUNK
+            log(f"  multi-host process {r['rank']} of {r['world']} "
+                f"({r['backend']}, {r['devices']} logical devices of "
+                f"{r['device']}, {r['gpu']}): parts [{r['start']}, "
+                f"{r['stop']}) in {r['blocks']} blocks, "
+                f"{r['gf_apply']} K1 launches, encode "
+                f"{gib_s(nbytes, r['encode_s']):.2f} GiB/s "
+                f"({r['encode_s']:.2f} s; making the parts {r['make_s']:.2f} "
+                f"s), checksum {r['checksum']:#010x}")
+        log(f"multi-host on one card: {MH_PROCESSES} processes in "
+            f"{wall:.1f} s (start-up included); the concatenated parity "
+            f"equals the single-process cuda coder's, the first and last "
+            f"part of each of its blocks numpy's, and each checksum its "
+            f"slice's")
+        stamp("serving_opt_in multi-host")
+    rec.close()
+    return expected
+
+
 def phase_timings(torch, dev, coder, data: np.ndarray,
                   parity: np.ndarray, repair_shapes=None) -> list[dict]:
     """Each kernel at the main path's launch shape beside its plain
@@ -3243,6 +3818,8 @@ def phase_all_gpus(torch, devices) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3443,6 +4020,10 @@ def main() -> int:
     # the host_codec group: the native host codec on the card's box
     expected.update(phase_host_codec(blob, path, counts, be))
     stamp("host_codec")
+
+    # the serving_opt_in group: QoS, the SLO engine and multi-host
+    expected.update(phase_serving_opt_in(path, counts, be, tp_rec))
+    stamp("serving_opt_in")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")

@@ -71,8 +71,8 @@ class TokenBucket:
     (take returns immediately) — the daemon itself is not constructed
     at rate 0, but --once CLI runs may scrub unthrottled.
 
-    An optional pressure hook (:meth:`set_pressure`, which the QoS
-    scheduler of ROADMAP Queue A item 5b will drive) scales *accrual* by
+    An optional pressure hook (:meth:`set_pressure`, which the gateway's
+    QoS scheduler drives, cluster/qos.py) scales *accrual* by
     ``1 - pressure`` with a :data:`MIN_ACCRUAL` floor: under full
     client-admission pressure scrub/repair I/O degrades to 5% of its
     budget but NEVER stops accruing — a stuck pressure signal slows
@@ -709,7 +709,7 @@ class ScrubDaemon:
         """Forward the gateway QoS pressure signal to the daemon's
         token bucket — the ONE bucket every scrub and planner-repair
         byte charges, so one hook throttles both (priority ordering:
-        client traffic > scrub/repair; ROADMAP Queue A item 5b)."""
+        client traffic > scrub/repair)."""
         self._bucket.set_pressure(fn)
 
     async def _run_forever(self) -> None:

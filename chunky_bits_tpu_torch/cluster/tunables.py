@@ -3,16 +3,17 @@
 
 ``Tunables`` is a cluster YAML's ``tunables:`` mapping, as in the JAX
 package (src/cluster/tunables.rs:52-95 plus that package's extensions):
-``on_conflict``, ``https_only``, ``user_agent``, the erasure ``backend``
-and the host and read-path knobs.  YAML wins; an environment variable
-supplies each default.  ``backend`` keeps the string as written, so a
-YAML naming the JAX package's backends round-trips; the names resolve in
-``ops.backend.canonical_backend_name``.
-
-The knobs of modules that are not ported yet are refused, never dropped:
-a ``slo:`` or ``qos:`` mapping or ``slo_eval_s`` above 0 (ROADMAP Queue
-A item 5b) raise ``SerdeError``.  The gateway's deployment knobs (worker count, sendfile)
-are environment-only, as in the JAX package.
+``on_conflict``, ``https_only``, ``user_agent``, the erasure ``backend``,
+the host and read-path knobs, and the serving plane's opt-in parts
+(``slo_eval_s`` with the ``slo:`` objectives, and the ``qos:`` tenant
+table).  YAML wins; an environment variable supplies each default.
+``backend`` keeps the string as written, so a YAML naming the JAX
+package's backends round-trips; the names resolve in
+``ops.backend.canonical_backend_name``.  The ``slo:`` and ``qos:``
+mappings are validated loudly at load against ``obs/slo.py`` and
+``cluster/qos.py``.  The gateway's deployment knobs (worker count,
+sendfile) and the multi-host coordinator are environment-only, as in the
+JAX package.
 
 The environment accessors are stand-alone copies of the JAX package's,
 plus ``virtual_devices`` (the port's stand-in for the forced host device
@@ -116,6 +117,25 @@ CODE_ENV = ENV_PREFIX + "CODE"
 #: fleet-wide metadata-store kind override for ``type: path`` stores:
 #: ``meta-log`` (cluster/meta_log.py)
 METADATA_KIND_ENV = ENV_PREFIX + "METADATA_KIND"
+
+#: SLO engine evaluation cadence in seconds (obs/slo.py, the gateway's
+#: ``/alerts``): > 0 runs the windowed burn-rate engine every this many
+#: seconds; 0/unset = no engine, no ring, no ticker.  YAML ``slo_eval_s``
+#: wins.  Read at gateway app build
+SLO_EVAL_S_ENV = ENV_PREFIX + "SLO_EVAL_S"
+
+#: flag: multi-tenant QoS admission (cluster/qos.py, gateway/qos.py) in
+#: front of GET bodies and PUT ingest.  YAML ``qos.enabled`` wins when
+#: present.  Read at gateway app build
+QOS_ENV = ENV_PREFIX + "QOS"
+
+#: ``host:port`` of the multi-host coordinator (parallel/multihost.py):
+#: ``init_multihost()`` with no arguments joins the process group there,
+#: as process ``$CHUNKY_BITS_TORCH_PROCESS_ID`` of
+#: ``$CHUNKY_BITS_TORCH_NUM_PROCESSES``
+COORDINATOR_ADDRESS_ENV = ENV_PREFIX + "COORDINATOR_ADDRESS"
+NUM_PROCESSES_ENV = ENV_PREFIX + "NUM_PROCESSES"
+PROCESS_ID_ENV = ENV_PREFIX + "PROCESS_ID"
 
 _FALSY = ("", "0", "false", "no", "off")
 
@@ -273,6 +293,38 @@ def trace_slow_ms(*, default: float = 0.0) -> float:
     return _lenient(TRACE_SLOW_MS_ENV, float, default, lambda v: v > 0)
 
 
+def slo_eval_s(*, default: float = 0.0) -> float:
+    """Env default of the ``slo_eval_s`` tunable (0 = the SLO engine stays
+    off); malformed or negative reads as off."""
+    return _lenient(SLO_EVAL_S_ENV, float, default, lambda v: v > 0)
+
+
+def qos_enabled(*, default: bool = False) -> bool:
+    """True when ``$CHUNKY_BITS_TORCH_QOS`` asks for multi-tenant QoS
+    admission; the YAML ``qos.enabled`` wins when the mapping sets it."""
+    return env_flag(QOS_ENV, default=default)
+
+
+def coordinator() -> Optional[tuple[str, int, int]]:
+    """``(address, num_processes, process_id)`` of the multi-host job
+    named by ``$CHUNKY_BITS_TORCH_COORDINATOR_ADDRESS``,
+    ``$CHUNKY_BITS_TORCH_NUM_PROCESSES`` and
+    ``$CHUNKY_BITS_TORCH_PROCESS_ID``; None when no address is set.  With
+    an address, a missing or malformed count or id raises ``ValueError``:
+    a job that cannot say its size must not start."""
+    address = os.environ.get(COORDINATOR_ADDRESS_ENV)
+    if not address:
+        return None
+    try:
+        return (address, int(os.environ[NUM_PROCESSES_ENV]),
+                int(os.environ[PROCESS_ID_ENV]))
+    except (KeyError, ValueError):
+        raise ValueError(
+            f"${COORDINATOR_ADDRESS_ENV} is set: ${NUM_PROCESSES_ENV} and "
+            f"${PROCESS_ID_ENV} must name this process's place in the "
+            "job") from None
+
+
 def gateway_workers(*, default: int = 1) -> int:
     """Gateway worker-process count from
     ``$CHUNKY_BITS_TORCH_GATEWAY_WORKERS``; unset, malformed or
@@ -300,13 +352,18 @@ _NUMERIC = (
     ("repair_block_bytes", int, repair_block_bytes),
     ("cache_bytes", int, cache_bytes),
     ("trace_slow_ms", float, trace_slow_ms),
+    ("slo_eval_s", float, slo_eval_s),
 )
 
-#: the JAX package's tunables whose modules the port has not yet, and the
-#: ROADMAP Queue A item that brings each: refused when set
-_NOT_PORTED = (("slo", "the SLO engine", "5b"),
-               ("qos", "multi-tenant QoS", "5b"),
-               ("slo_eval_s", "the SLO engine", "5b"))
+
+def _checked_mapping(name: str, raw: object, check) -> dict:
+    """``raw`` (the YAML ``slo:`` or ``qos:`` mapping) validated by
+    ``check`` (its module's loud ``from_obj``), as a plain dict."""
+    try:
+        check(raw)
+    except ValueError as err:
+        raise SerdeError(f"invalid {name} mapping: {err}") from err
+    return dict(raw)
 
 
 @dataclass
@@ -333,6 +390,15 @@ class Tunables:
     cache_bytes: int = field(default_factory=cache_bytes)
     #: slow-request tracing threshold in ms (the gateway); 0 = off
     trace_slow_ms: float = field(default_factory=trace_slow_ms)
+    #: SLO engine evaluation cadence in seconds (obs/slo.py); 0 = off
+    slo_eval_s: float = field(default_factory=slo_eval_s)
+    #: SLO objective overrides (the YAML ``slo:`` mapping, validated
+    #: against ``SloObjectives``); empty = the defaults
+    slo: dict = field(default_factory=dict)
+    #: multi-tenant QoS config (the YAML ``qos:`` mapping, validated
+    #: against ``QosConfig``); empty = no named tenants, the scheduler on
+    #: only through the env flag
+    qos: dict = field(default_factory=dict)
 
     def is_device_backend(self) -> bool:
         """True when the erasure plane runs on the card (``cuda``,
@@ -360,11 +426,6 @@ class Tunables:
             return cls()
         if not isinstance(obj, dict):
             raise SerdeError("tunables must be a mapping")
-        for key, what, item in _NOT_PORTED:
-            if obj.get(key):
-                raise SerdeError(
-                    f"tunables.{key}: {what} is not yet ported (ROADMAP "
-                    f"Queue A item {item})")
         kwargs = {}
         for name, kind, _default in _NUMERIC:
             raw = obj.get(name)
@@ -377,6 +438,19 @@ class Tunables:
             if value < 0:
                 raise SerdeError(f"{name} must be >= 0, got {value}")
             kwargs[name] = value
+        if obj.get("slo") is not None:
+            # a typo'd objective must fail the cluster parse, not silently
+            # never alert; obs/slo.py owns the field set
+            from chunky_bits_tpu_torch.obs.slo import SloObjectives
+
+            kwargs["slo"] = _checked_mapping("slo", obj["slo"],
+                                             SloObjectives.from_obj)
+        if obj.get("qos") is not None:
+            # likewise a typo'd tenant table; cluster/qos.py owns the keys
+            from chunky_bits_tpu_torch.cluster.qos import QosConfig
+
+            kwargs["qos"] = _checked_mapping("qos", obj["qos"],
+                                             QosConfig.from_obj)
         return cls(
             https_only=bool(obj.get("https_only", False)),
             on_conflict=obj.get("on_conflict", "ignore"),
@@ -398,6 +472,9 @@ class Tunables:
             if name == "read_retries" and value != 1 or (
                     name != "read_retries" and value > 0):
                 obj[name] = value
+        for name in ("slo", "qos"):
+            if getattr(self, name):
+                obj[name] = dict(getattr(self, name))
         return obj
 
     def location_context(self):

@@ -10,10 +10,11 @@ and every ``log_request``/``log_read``/``log_write`` also records into
 the metrics registry and, when a trace is active, onto the trace.  The
 report also carries the counters of the host pipelines and the table of
 the location-health scoreboards attached to it, and of the read caches
-(``file/chunk_cache.py``), and the ``Scrub<...>`` stanza of each scrub
-daemon attached (``attach_scrub``, cluster/scrub.py).  Not ported yet:
-the SLO and QoS attach points, which come with their modules (ROADMAP
-Queue A item 5b).
+(``file/chunk_cache.py``), the ``Scrub<...>`` stanza of each scrub
+daemon attached (``attach_scrub``, cluster/scrub.py), the ``Slo<...>``
+stanza of each SLO engine (``attach_slo``, obs/slo.py) and the
+``Qos<...>`` stanza of each QoS scheduler (``attach_qos``,
+cluster/qos.py).
 """
 
 from __future__ import annotations
@@ -167,6 +168,8 @@ class Profiler:
         self._pipelines: list = []  # host pipelines ditto
         self._healths: list = []  # location-health scoreboards ditto
         self._scrubs: list = []  # scrub daemons ditto
+        self._slos: list = []  # SLO engines ditto
+        self._qos: list = []  # QoS schedulers ditto
         # per-location failure notes from the read fall-through
         # (fetch_chunk): which location failed / was corrupt and why —
         # the diagnosable trail the anonymous `except LocationError:
@@ -250,6 +253,33 @@ class Profiler:
         """Snapshot of each attached scrub daemon."""
         with self._lock:
             return [s.stats() for s in self._scrubs]
+
+    def attach_slo(self, engine) -> None:
+        """Register an SLO engine (obs/slo.py) so its firing and pending
+        alerts ride along in the report's ``Slo<...>`` stanza: the report
+        and ``GET /alerts`` tell one story."""
+        with self._lock:
+            if all(e is not engine for e in self._slos):
+                self._slos.append(engine)
+
+    def slo_stats(self) -> list:
+        """Snapshot of each attached SLO engine (SloStats)."""
+        with self._lock:
+            return [e.stats() for e in self._slos]
+
+    def attach_qos(self, scheduler) -> None:
+        """Register a QoS scheduler (cluster/qos.py) so its per-tenant
+        admission, shed and queue counters ride along in the report's
+        ``Qos<...>`` stanza, the snapshot ``/stats`` and the ``cb_qos_*``
+        families read too."""
+        with self._lock:
+            if all(q is not scheduler for q in self._qos):
+                self._qos.append(scheduler)
+
+    def qos_stats(self) -> list:
+        """Snapshot of each attached QoS scheduler (QosStats)."""
+        with self._lock:
+            return [q.stats() for q in self._qos]
 
     def log_location_failure(self, location, error: str) -> None:
         """A per-location read failure (unreadable or hash-mismatched)
@@ -341,12 +371,15 @@ class ProfileReport:
     def __init__(self, entries: list[ResultLog], cache_stats: list = (),
                  pipeline_stats: list = (), health_stats: list = (),
                  location_failures: list = (), requests: list = (),
-                 scrub_stats: list = (), dropped: Optional[dict] = None):
+                 scrub_stats: list = (), slo_stats: list = (),
+                 dropped: Optional[dict] = None, qos_stats: list = ()):
         self.entries = entries
         self.cache_stats = list(cache_stats)
         self.pipeline_stats = list(pipeline_stats)
         self.health_stats = list(health_stats)
         self.scrub_stats = list(scrub_stats)
+        self.slo_stats = list(slo_stats)
+        self.qos_stats = list(qos_stats)
         self.location_failures = list(location_failures)
         self.requests = list(requests)
         self.dropped = dict(dropped or {})
@@ -388,6 +421,10 @@ class ProfileReport:
             base += f" {stats}"
         for stats in self.scrub_stats:
             base += f" {stats}"
+        for stats in self.slo_stats:
+            base += f" {stats}"
+        for stats in self.qos_stats:
+            base += f" {stats}"
         if self.requests:
             base += f" {request_stats(self.requests)}"
         if self.location_failures:
@@ -418,7 +455,9 @@ class ProfileReporter:
                              self._profiler.drain_location_failures(),
                              self._profiler.drain_requests(),
                              self._profiler.scrub_stats(),
-                             self._profiler.drop_counts())
+                             self._profiler.slo_stats(),
+                             self._profiler.drop_counts(),
+                             self._profiler.qos_stats())
 
 
 def new_profiler() -> tuple[Profiler, ProfileReporter]:

@@ -24,7 +24,11 @@ Beyond the reference, as in the JAX package:
 - **Admission control.**  In-flight GET bodies are bounded
   (``max_concurrent_gets``): excess requests get an immediate 503 +
   ``Retry-After``.  PUT ingests queue on a semaphore, under a size cap
-  and a minimum rate.
+  and a minimum rate.  With multi-tenant QoS on (the YAML ``qos:``
+  mapping, cluster/qos.py), GET bodies and PUT ingests are admitted
+  through the weighted-fair scheduler instead: each tenant (resolved once
+  per request from ``X-Api-Key`` or a path prefix) queues briefly within
+  its bounds, and only overflow sheds 503.
 - **Access log and observability.**  One structured line per request
   through the app's ``Profiler.log_request``; ``/metrics`` (Prometheus
   text; the fleet view under a supervisor), ``/stats``, ``/healthz`` and
@@ -32,9 +36,14 @@ Beyond the reference, as in the JAX package:
   counters (``enabled: true``) when single-process ``serve`` runs one
   (the cluster's ``scrub_bytes_per_sec`` tunable above 0,
   cluster/scrub.py), else ``enabled: false``; a multi-worker fleet runs
-  none, as in the JAX package.  ``/alerts`` answers ``enabled: false``:
-  the SLO engine and the QoS scheduler are not ported yet (ROADMAP Queue
-  A item 5b).
+  none, as in the JAX package.  ``/alerts`` answers the SLO engine's
+  alert states (obs/slo.py; the fleet merge over the spool under a
+  supervisor) when the cluster's ``slo_eval_s`` tunable is above 0, else
+  ``enabled: false``.
+
+The SLO engine and the QoS scheduler cost nothing when off: their modules
+are not imported, no engine, scheduler or ticker task exists, and the
+serve path tests one None.
 
 Every PUT encodes through the cluster's shared encode batcher, and every
 GET that reassembles rebuilds through the per-loop reconstruct batcher,
@@ -62,7 +71,8 @@ from aiohttp import web
 from chunky_bits_tpu_torch.cluster import Cluster
 from chunky_bits_tpu_torch.errors import ChunkyBitsError, MetadataReadError
 from chunky_bits_tpu_torch.file.file_reference import FileReference
-from chunky_bits_tpu_torch.file.profiler import Profiler, request_stats
+from chunky_bits_tpu_torch.file.profiler import (Profiler, request_stats,
+                                                 tenant_request_stats)
 from chunky_bits_tpu_torch.obs import metrics as obs_metrics
 from chunky_bits_tpu_torch.obs import tracing as obs_tracing
 from chunky_bits_tpu_torch.utils import aio
@@ -362,6 +372,20 @@ def make_app(cluster: Cluster,
 
         sendfile = gateway_sendfile()
 
+    # SLO engine (obs/slo.py): windowed burn-rate alerting over this
+    # registry's snapshots, built only when the cluster's `slo_eval_s`
+    # tunable asks for it (off: no ring, no ticker task, /alerts answers
+    # enabled: false).  Objectives come from the YAML `slo:` mapping
+    slo_eval = max(cluster.tunables.slo_eval_s, 0.0)
+    slo_engine = None
+    if slo_eval > 0:
+        from chunky_bits_tpu_torch.obs import slo as obs_slo
+
+        slo_engine = obs_slo.SloEngine(
+            objectives=obs_slo.SloObjectives.from_obj(
+                cluster.tunables.slo or None),
+            registry=registry)
+
     # the app's own profiler collects the per-request access log; the
     # cluster's serve-path counters (cache, health) ride along so one
     # report shows the whole serving picture
@@ -370,6 +394,48 @@ def make_app(cluster: Cluster,
     profiler.attach_health(cluster.health_scoreboard())
     if scrub is not None:
         profiler.attach_scrub(scrub)
+    if slo_engine is not None:
+        profiler.attach_slo(slo_engine)
+
+    # Multi-tenant QoS scheduler (gateway/qos.py + cluster/qos.py):
+    # weighted-fair admission in front of GET bodies and PUT ingest, off
+    # by default.  The enablement check reads only the YAML dict and the
+    # env flag, so the qos modules are not even imported when off.  When
+    # on, the scheduler is also the pressure and hedge authority: scrub
+    # and planner-repair I/O throttle against read pressure (client reads
+    # > writes > hedges > scrub/repair), and the scoreboard's hedge
+    # launches go through its SLO-aware advisor
+    _qos_on = (cluster.tunables.qos or {}).get("enabled")
+    if _qos_on is None:
+        from chunky_bits_tpu_torch.cluster.tunables import qos_enabled
+
+        _qos_on = qos_enabled()
+    qos_sched = None
+    # the shed exception the admission sites catch; an empty tuple (qos
+    # off) catches nothing
+    qos_shed_exc: tuple = ()
+    if _qos_on:
+        from chunky_bits_tpu_torch.cluster.qos import QosShedError
+        from chunky_bits_tpu_torch.gateway import qos as gw_qos
+
+        qos_shed_exc = (QosShedError,)
+        qos_sched = gw_qos.maybe_build(
+            cluster,
+            read_capacity=(max_concurrent_gets
+                           if max_concurrent_gets > 0
+                           else DEFAULT_MAX_CONCURRENT_GETS),
+            write_capacity=(max_concurrent_puts
+                            if max_concurrent_puts > 0
+                            else DEFAULT_MAX_CONCURRENT_PUTS))
+    if qos_sched is not None:
+        profiler.attach_qos(qos_sched)
+        # hedges yield to client traffic: the scoreboard consults the
+        # scheduler before arming or firing (suppression burns no budget)
+        cluster.health_scoreboard().set_hedge_gate(qos_sched.allow_hedge)
+        if scrub is not None:
+            # scrub and repair I/O ride one token bucket; pressure scales
+            # its accrual down (floor 5%: degrade, never hang)
+            scrub.set_pressure(qos_sched.pressure)
 
     # build/configuration identity for the fleet view: one static
     # gauge whose labels say which version/backend/flags THIS worker
@@ -387,8 +453,8 @@ def make_app(cluster: Cluster,
             "xor_schedule": "on" if xor_schedule_enabled() else "off",
             "sendfile": "on" if sendfile else "off",
             "scrub": "on" if scrub is not None else "off",
-            "slo": "off",
-            "qos": "off",
+            "slo": "on" if slo_engine is not None else "off",
+            "qos": "on" if qos_sched is not None else "off",
         }, registry)
 
     # PUT ingest compute (per-shard SHA-256 + per-stripe GF encode) runs
@@ -432,6 +498,8 @@ def make_app(cluster: Cluster,
             return _RETRY_AFTER_SECONDS
         rate = len(get_done) / span      # completions per second
         ahead = gets_in_flight["now"]
+        if qos_sched is not None:
+            ahead += qos_sched.queued("read")
         wait = (ahead + 1) / rate
         return str(max(1, min(int(wait + 0.5), _RETRY_AFTER_MAX)))
 
@@ -657,7 +725,21 @@ def make_app(cluster: Cluster,
         # 404s and 416s (all body-free and cheap) are always answered
         # even at the bound.  Shed, don't queue: an immediate 503 with
         # Retry-After keeps worker memory bounded under a client storm.
-        if (max_concurrent_gets > 0
+        # With QoS on, admission runs through the weighted-fair scheduler
+        # instead: requests queue briefly (bounded depth and wait) per
+        # tenant, so one flooding tenant cannot starve the others, and
+        # overflow still sheds 503.  A failed acquire holds no slot; a
+        # granted one is released in the finally below
+        if qos_sched is not None:
+            try:
+                await qos_sched.acquire("read", request["cb_tenant"],
+                                        cost=length)
+            except qos_shed_exc:
+                shed_counter.inc()
+                return web.Response(
+                    status=503, text="error: too many in-flight reads\n",
+                    headers={"Retry-After": _retry_after()})
+        elif (max_concurrent_gets > 0
                 and gets_in_flight["now"] >= max_concurrent_gets):
             shed_counter.inc()
             return web.Response(
@@ -673,6 +755,8 @@ def make_app(cluster: Cluster,
             gets_in_flight["now"] -= 1
             inflight_gauge.set(gets_in_flight["now"])
             get_done.append(time.monotonic())
+            if qos_sched is not None:
+                qos_sched.release("read")
 
     async def _serve_get_body(request: web.Request, path: str,
                               file_ref: FileReference, builder,
@@ -752,29 +836,49 @@ def make_app(cluster: Cluster,
                 put_reject_counter.labels(reason="too_large").inc()
                 return put_reject(413, "error: body too large\n")
 
-        # A rejected or aborted ingest can leave orphaned shards; they
-        # are content-addressed (possibly shared with other files), so
-        # they are left to the reference-checking find-unused-hashes GC
-        # rather than deleted blindly.
-        async with put_sem:
+        # With QoS on, write admission runs through the weighted-fair
+        # scheduler before the body is read: grants stay <= the write
+        # capacity (= the put_sem bound), so put_sem below never waits and
+        # stays as the backstop.  Write grants are deferred while client
+        # reads queue (reads > writes), bounded by the wait deadline
+        if qos_sched is not None:
+            cost = int(declared) if declared is not None else None
             try:
-                await cluster.write_file(
-                    path,
-                    _GuardedBody(request.content, max_put_bytes,
-                                 min_put_rate),
-                    profile, content_type)
-            except _BodyTooLarge:
-                put_reject_counter.labels(reason="too_large").inc()
-                return put_reject(413, "error: body too large\n")
-            except _BodyTooSlow:
-                put_reject_counter.labels(reason="too_slow").inc()
-                return put_reject(408, "error: ingest too slow\n")
-            except ChunkyBitsError as err:
-                log.error("PUT %s failed: %s", path, err)
-                log.error("location health at failure: %s",
-                          health.stats())
-                put_reject_counter.labels(reason="error").inc()
-                return put_reject(500, "error: internal error\n")
+                await qos_sched.acquire("write", request["cb_tenant"],
+                                        cost=cost)
+            except qos_shed_exc:
+                put_reject_counter.labels(reason="shed").inc()
+                resp = put_reject(
+                    503, "error: too many in-flight writes\n")
+                resp.headers["Retry-After"] = _retry_after()
+                return resp
+        try:
+            # A rejected or aborted ingest can leave orphaned shards; they
+            # are content-addressed (possibly shared with other files), so
+            # they are left to the reference-checking find-unused-hashes
+            # GC rather than deleted blindly.
+            async with put_sem:
+                try:
+                    await cluster.write_file(
+                        path,
+                        _GuardedBody(request.content, max_put_bytes,
+                                     min_put_rate),
+                        profile, content_type)
+                except _BodyTooLarge:
+                    put_reject_counter.labels(reason="too_large").inc()
+                    return put_reject(413, "error: body too large\n")
+                except _BodyTooSlow:
+                    put_reject_counter.labels(reason="too_slow").inc()
+                    return put_reject(408, "error: ingest too slow\n")
+                except ChunkyBitsError as err:
+                    log.error("PUT %s failed: %s", path, err)
+                    log.error("location health at failure: %s",
+                              health.stats())
+                    put_reject_counter.labels(reason="error").inc()
+                    return put_reject(500, "error: internal error\n")
+        finally:
+            if qos_sched is not None:
+                qos_sched.release("write")
         return web.Response(status=200)
 
     @web.middleware
@@ -796,6 +900,12 @@ def make_app(cluster: Cluster,
         start = time.monotonic()
         status = 500
         nbytes = 0
+        # the tenant resolves here, once per request, before any handler
+        # runs; both admission sites and the log read it.  Resolution is
+        # total over the closed table (unmatched -> "other")
+        if qos_sched is not None:
+            request["cb_tenant"] = gw_qos.resolve_request_tenant(
+                qos_sched.config, request)
         trace = token = None
         if trace_slow_s > 0:
             trace_id = obs_tracing.clean_id(
@@ -819,6 +929,13 @@ def make_app(cluster: Cluster,
             tenant = request.get("cb_tenant", "-")
             profiler.log_request(request.method, request.path, status,
                                  nbytes, duration, source, tenant)
+            if qos_sched is not None and status < 500:
+                # completion-latency sample for the SLO-aware hedge
+                # advisor: the numbers the access log just recorded
+                if request.method == "GET":
+                    qos_sched.note_request("read", duration)
+                elif request.method == "PUT":
+                    qos_sched.note_request("write", duration)
             if trace is not None and token is not None:
                 trace.add("request", "gateway", start, duration,
                           str(status))
@@ -865,10 +982,25 @@ def make_app(cluster: Cluster,
             content_type="text/plain", charset="utf-8")
 
     async def handle_alerts(request: web.Request) -> web.Response:
-        """SLO alert states: ``enabled: false``, as the JAX gateway
-        answers with its SLO engine off (the port has none yet)."""
+        """SLO alert states as JSON (obs/slo.py); ``enabled: false`` when
+        the engine is off (``slo_eval_s`` unset, the default).  Under a
+        multi-worker supervisor the payload adds the fleet view, merged
+        from the snapshot spool /metrics reads: per rule, the max state
+        across live workers, with the per-worker breakdown; a spool-reaped
+        dead worker drops out of the merge."""
         request["cb_source"] = "meta"
-        return web.json_response({"enabled": False})
+        if slo_engine is None:
+            return web.json_response({"enabled": False})
+        payload = slo_engine.to_obj()
+        payload["worker"] = worker_id
+        if metrics_spool is not None:
+            entries = await asyncio.to_thread(
+                obs_metrics.load_spool, metrics_spool)
+            entries = [(wid, snap) for wid, snap in entries
+                       if wid != worker_id]
+            entries.append((worker_id, registry.snapshot()))
+            payload["fleet"] = obs_slo.fleet_alert_states(entries)
+        return web.json_response(payload)
 
     async def handle_stats(request: web.Request) -> web.Response:
         """JSON snapshot twin of /metrics (this worker only — machine
@@ -881,10 +1013,18 @@ def make_app(cluster: Cluster,
             "requests": request_stats(
                 profiler.peek_requests()).to_obj(),
             "dropped": profiler.drop_counts(),
-            "slo": {"enabled": False},
-            "qos": {"enabled": False},
+            "slo": ({"enabled": True, **slo_engine.stats().to_obj()}
+                    if slo_engine is not None else {"enabled": False}),
+            "qos": (qos_sched.stats().to_obj()
+                    if qos_sched is not None else {"enabled": False}),
             "metrics": registry.snapshot(),
         }
+        if qos_sched is not None:
+            # per-tenant access-log percentiles, the same request_stats
+            # code as the aggregate block above
+            payload["requests_by_tenant"] = {
+                t: st.to_obj() for t, st in tenant_request_stats(
+                    profiler.peek_requests()).items()}
         return web.json_response(payload)
 
     async def handle_healthz(request: web.Request) -> web.Response:
@@ -918,6 +1058,34 @@ def make_app(cluster: Cluster,
     # to the app's lifecycle so tests and restarts leak nothing
     lag_monitor = obs_metrics.LoopLagMonitor(registry)
     spool_task: dict = {"task": None}
+    slo_task: dict = {"task": None}
+
+    async def _slo_ticker() -> None:
+        """The engine's cadence: one registry snapshot per `slo_eval_s`
+        into the ring.  Under a supervisor the engine evaluates the
+        worker-labeled fleet view (this worker live, siblings off the
+        spool, every sample tagged `worker=`), not the summed /metrics
+        merge, whose per-series reset clamp would misread one sibling's
+        restart as a fleet-lifetime delta."""
+        while True:
+            try:
+                own = registry.snapshot()
+                if metrics_spool is not None:
+                    entries = await asyncio.to_thread(
+                        obs_metrics.load_spool, metrics_spool)
+                    entries = [(wid, s) for wid, s in entries
+                               if wid != worker_id]
+                    entries.append((worker_id, own))
+                    snap = obs_slo.worker_labeled_snapshot(entries)
+                else:
+                    snap = own
+                slo_engine.observe(snap)
+            # one bad beat (a torn spool file mid-teardown, a foreign
+            # snapshot shape) must not kill alerting for the process's
+            # life: log, and the next tick retries
+            except Exception as err:
+                log.warning("slo evaluation tick failed: %s", err)
+            await asyncio.sleep(slo_eval)
 
     async def _spool_writer() -> None:
         path = os.path.join(metrics_spool, f"worker-{worker_id}.json")
@@ -938,14 +1106,17 @@ def make_app(cluster: Cluster,
         lag_monitor.start(asyncio.get_running_loop())
         if metrics_spool is not None:
             spool_task["task"] = asyncio.ensure_future(_spool_writer())
+        if slo_engine is not None:
+            slo_task["task"] = asyncio.ensure_future(_slo_ticker())
 
     async def _on_cleanup(app: web.Application) -> None:
         lag_monitor.stop()
-        task = spool_task["task"]
-        if task is not None:
-            task.cancel()
-            await asyncio.gather(task, return_exceptions=True)
-            spool_task["task"] = None
+        for holder in (spool_task, slo_task):
+            task = holder["task"]
+            if task is not None:
+                task.cancel()
+                await asyncio.gather(task, return_exceptions=True)
+                holder["task"] = None
 
     app = web.Application(middlewares=[access_log])
     app[PROFILER_KEY] = profiler

@@ -9,9 +9,11 @@ source:
   :func:`record_request`, :func:`record_io` and :func:`record_dropped`;
   the gateway's admission and shed counters increment registry counters
   directly;
-* **polled sources**: ``ChunkCache``, ``HostPipeline`` and
-  ``HealthScoreboard`` register weakly at construction and are read at
-  scrape time off their ``stats()`` (:func:`_source_families`).
+* **polled sources**: ``ChunkCache``, ``HostPipeline``,
+  ``HealthScoreboard``, the scrub daemon, the repair planner, the
+  scheduled-XOR cache and the QoS scheduler register weakly at
+  construction and are read at scrape time off their ``stats()``
+  (:func:`_source_families`).
 
 Exposition is Prometheus text (:func:`render_exposition`), checked by
 the strict line-grammar parser :func:`parse_exposition`.
@@ -23,8 +25,7 @@ worker's ``/metrics`` merges them).
 Label values come from closed sets (HTTP method, status class, serving
 source, pipeline stage, configured node key), never from request paths
 or other client strings; a family refuses to grow past
-:data:`MAX_LABEL_SETS` label sets.  The source families of modules the
-port does not have yet (QoS, the XOR schedule) come with them.
+:data:`MAX_LABEL_SETS` label sets.
 """
 
 from __future__ import annotations
@@ -247,7 +248,7 @@ class MetricsRegistry:
 
     def register_source(self, kind: str, obj: object) -> None:
         """Weakly register a stat source (``kind`` one of "cache",
-        "pipeline", "health", "repair", "scrub", "xor_schedule"); its
+        "pipeline", "health", "repair", "scrub", "xor_schedule", "qos"); its
         ``stats()`` (``info()`` for the xor-schedule cache) is folded into
         every snapshot while the object lives;
         registration never extends the object's lifetime, so sources
@@ -598,6 +599,44 @@ def _source_families(reg: MetricsRegistry) -> list[dict]:
                          "scrub byte-rate bound", [_scalar(
                              sum(x["rate_bytes_per_sec"]
                                  for x in scrubs))]))
+
+    qoses = [q.stats().to_obj() for q in reg.sources("qos")]
+    if qoses:
+        # the ``tenant`` label values come from the scheduler's closed
+        # table (named YAML tenants + "other", cluster/qos.py), so nothing
+        # here can mint one; per-worker schedulers sum in the fleet merge
+        tenants: dict[str, dict] = {}
+        for q in qoses:
+            for name, row in q["tenants"].items():
+                agg = tenants.setdefault(
+                    name, {"admitted": 0.0, "shed": 0.0, "bytes": 0.0,
+                           "throttle_waits": 0.0, "queued": 0.0})
+                for key in agg:
+                    agg[key] += float(row.get(key, 0) or 0)
+        for metric, key, kind, help_ in (
+                ("cb_qos_admitted_total", "admitted", COUNTER,
+                 "QoS admissions granted"),
+                ("cb_qos_shed_total", "shed", COUNTER,
+                 "QoS admissions shed (queue full / wait deadline)"),
+                ("cb_qos_bytes_total", "bytes", COUNTER,
+                 "QoS bytes admitted"),
+                ("cb_qos_throttle_waits_total", "throttle_waits",
+                 COUNTER, "QoS per-tenant rate-bucket waits"),
+                ("cb_qos_queued", "queued", GAUGE,
+                 "QoS waiters currently queued")):
+            fams.append(_fam(metric, kind, help_, [
+                _scalar(agg[key], tenant=tenant)
+                for tenant, agg in sorted(tenants.items())]))
+        qsum = _sum_rows(qoses, ("hedge_suppressed", "hedge_conserved"))
+        fams.append(_fam("cb_qos_hedge_suppressed_total", COUNTER,
+                         "hedge launches suppressed under admission "
+                         "pressure", [_scalar(qsum["hedge_suppressed"])]))
+        fams.append(_fam("cb_qos_hedge_conserved_total", COUNTER,
+                         "hedge budget conserved on ample p99 headroom",
+                         [_scalar(qsum["hedge_conserved"])]))
+        fams.append(_fam("cb_qos_pressure", GAUGE,
+                         "gateway admission pressure [0,1]",
+                         [_scalar(max(q["pressure"] for q in qoses))]))
 
     scheds = [s.info() for s in reg.sources("xor_schedule")]
     if scheds:

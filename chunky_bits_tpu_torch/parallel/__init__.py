@@ -1,10 +1,12 @@
 """Host- and device-plane parallelism.
 
-Two planes live here: the mesh-sharded erasure transforms (``mesh`` and
-``backend``: several logical devices, on one card or many) and the host
+Three parts live here: the mesh-sharded erasure transforms (``mesh`` and
+``backend``: several logical devices, on one card or many), the host
 compute pipeline (``host_pipeline``: multi-core ingest hashing and
-encode).  The package exports resolve lazily (PEP 562), so importing the
-host plane loads none of the mesh modules.
+encode) and the multi-host bootstrap (``multihost``: the process group
+and each process's slice of parts and local mesh).  The package exports
+resolve lazily (PEP 562), so importing the host plane loads none of the
+mesh modules.
 """
 
 from typing import Any
@@ -22,8 +24,14 @@ _HOST_PIPELINE_EXPORTS = (
     "HostPipeline",
     "get_host_pipeline",
 )
+_MULTIHOST_EXPORTS = (
+    "init_multihost",
+    "local_mesh",
+    "local_stripe_mesh",
+    "partition_parts",
+)
 
-__all__ = list(_MESH_EXPORTS + _HOST_PIPELINE_EXPORTS)
+__all__ = list(_MESH_EXPORTS + _HOST_PIPELINE_EXPORTS + _MULTIHOST_EXPORTS)
 
 
 def __getattr__(name: str) -> Any:
@@ -35,5 +43,9 @@ def __getattr__(name: str) -> Any:
         from chunky_bits_tpu_torch.parallel import host_pipeline
 
         return getattr(host_pipeline, name)
+    if name in _MULTIHOST_EXPORTS:
+        from chunky_bits_tpu_torch.parallel import multihost
+
+        return getattr(multihost, name)
     raise AttributeError(
         f"module {__name__!r} has no attribute {name!r}")

@@ -309,24 +309,29 @@ def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
     # that such a cluster loads and keeps the tunable
     pytest.param({"scrub_bytes_per_sec": 1e6}, None, id="tunable3-6")])
 def test_unported_serving_tunables_still_refuse(tmp_path, tunable, item):
-    """A cluster YAML naming the SLO engine or QoS fails every command
-    that loads it, naming the item that brings it; the gateway does not
-    serve such a cluster either."""
+    """The serving plane's opt-in tunables are ported (item 5b: the SLO
+    engine and QoS; item 6: the scrub daemon): a cluster YAML naming them
+    loads for every command and keeps each value as written, and for the
+    5b cases an invalid value fails every command that loads the YAML,
+    the gateway's too, naming the tunable."""
     conf = make_cluster_yaml(tmp_path)
     spec = yaml.safe_load(conf.read_text())
     spec["tunables"] = tunable
     conf.write_text(yaml.safe_dump(spec))
     key = next(iter(tunable))
+    cli(tmp_path, "ls", f"{conf}#.")
+    out, _err = cli(tmp_path, "cluster-info", "--json", str(conf))
+    assert json.loads(out)["tunables"][key] == tunable[key]
     if item is None:
-        cli(tmp_path, "ls", f"{conf}#.")
-        out, _err = cli(tmp_path, "cluster-info", "--json", str(conf))
-        assert json.loads(out)["tunables"][key] == tunable[key]
         return
+    bad = {"slo": {"fast_s": "soon"}, "qos": {"enabled": 1},
+           "slo_eval_s": -1}[key]
+    spec["tunables"] = {key: bad}
+    conf.write_text(yaml.safe_dump(spec))
     for argv in (("ls", f"{conf}#."),
                  ("http-gateway", str(conf), "-l", "127.0.0.1:0")):
         _out, err = cli(tmp_path, *argv, rc=1)
-        assert f"tunables.{key}: " in err, err
-        assert f"not yet ported (ROADMAP Queue A item {item})" in err, err
+        assert key in err and ("invalid" in err or ">= 0" in err), err
 
 
 def test_backend_help_names_the_ports_backends():

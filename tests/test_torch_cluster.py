@@ -657,13 +657,21 @@ def test_tpu_example_backend_round_trips(tmp_path):
 # ---- tunables ----
 
 @pytest.mark.parametrize("obj,error", [
-    ({"slo": {"fast_s": 60}}, "tunables.slo: .*not yet ported .*item 5"),
-    ({"qos": {"enabled": True}}, "tunables.qos: .*not yet ported .*item 5"),
+    # the SLO engine and QoS are ported: these three cases keep their ids
+    # and now check that an invalid mapping or a negative cadence refuses
+    # (test_tunables_round_trip_equals_jax loads valid ones)
+    pytest.param({"slo": {"fast_s": -60}},
+                 "invalid slo mapping: slo objective fast_s must be >= 0",
+                 id="obj0-tunables.slo: .*not yet ported .*item 5"),
+    pytest.param({"qos": {"enabled": "yes"}},
+                 "invalid qos mapping: enabled must be a bool",
+                 id="obj1-tunables.qos: .*not yet ported .*item 5"),
     # request tracing and the chunk cache are ported: these two cases keep
     # their ids and now check that a negative or malformed value refuses
     pytest.param({"trace_slow_ms": -250}, "trace_slow_ms must be >= 0",
                  id="obj2-request tracing is not yet ported .*item 5"),
-    ({"slo_eval_s": 15}, "tunables.slo_eval_s: .*not yet ported .*item 5"),
+    pytest.param({"slo_eval_s": -15}, "slo_eval_s must be >= 0",
+                 id="obj3-tunables.slo_eval_s: .*not yet ported .*item 5"),
     # the scrub daemon is ported: the case keeps its id and now checks
     # that a negative rate refuses
     pytest.param({"scrub_bytes_per_sec": -1},
@@ -689,7 +697,11 @@ def test_tunables_round_trip_equals_jax(monkeypatch):
         monkeypatch.delenv("CHUNKY_BITS_TPU_" + knob, raising=False)
     obj = {"backend": "jax:tp4", "host_threads": 3, "hedge_ms": 25,
            "read_retries": 0, "repair_block_bytes": 4096,
-           "scrub_bytes_per_sec": 0, "on_conflict": "overwrite"}
+           "scrub_bytes_per_sec": 0, "on_conflict": "overwrite",
+           "slo_eval_s": 15, "slo": {"fast_s": 60, "min_workers": 2},
+           "qos": {"enabled": True, "tenants": {"gold": {
+               "weight": 4, "keys": ["k"], "prefixes": ["/g/"]}},
+               "other": {"weight": 2}}}
     ours = Tunables.from_obj(obj).to_obj()
     assert ours == JaxTunables.from_obj(obj).to_obj()
     assert Tunables.from_obj(ours).to_obj() == ours
