@@ -100,15 +100,28 @@ drives the main paths:
   joined by ``init_multihost`` over gloo, each encoding its
   ``partition_parts`` slice of 256 config-2 parts on ``local_mesh(sp=2)``
   over 4 logical devices of the card, the parity equal to the
-  single-process ``cuda`` coder's.
+  single-process ``cuda`` coder's;
+* the ``simulator`` group, the cluster simulator on ``cuda`` (its
+  clusters name no backend): BASELINE.md config 14's ten scenarios at
+  N=100, seed 0, every verdict true (a fault fabric of ``sim:``
+  locations behind the real cluster, scrub and repair, on the
+  virtual-time loop); ``az_outage`` at N=1000; ``az_outage`` at N=100
+  again on ``cuda`` and once on ``torch``, the three traces byte-identical
+  and both ``cuda`` metrics snapshots equal; config 15's detection leg
+  (every expected alert within its bound and resolved, no other firing,
+  ``thundering_herd`` twice with equal reports and traces); config 16's
+  crash matrix over its eight mutations twice (every image clean, one
+  digest) and its cluster recovery (``scrub --once`` brings every crash
+  image to Valid).
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
 mesh block launches one kernel per logical device with work, and a tp
 block one reduce-and-pack per 'dp' group).  Then it times each kernel
 beside its plain version and its bound (K1 also at the one-part shapes of
-the read dispatches, at config 5's stripe and at the repair planner's
-commonest shapes); the SHA bound
+the read dispatches, at config 5's stripe, at the repair planner's
+commonest shapes and at the d=3 p=2 decode shapes of config 19's and the
+simulator's reads); the SHA bound
 counts the instructions of one compression, checked against the compiled
 loop (``cuobjdump -sass``).
 
@@ -3209,6 +3222,203 @@ def phase_serving_opt_in(path, counts, be, tp_rec) -> dict:
     return expected
 
 
+SIM_NODES = 100        # BASELINE config 14's fleet (bench.py:2642)
+SIM_BIG_NODES = 1000   # the README's thousand-node run
+SIM_SEED = 0
+SIM_CHUNK = 4 << 10    # ScenarioEnv's chunk_log2 of 12
+#: the one verdict that fails at N=1000 in the JAX package too: the
+#: breaker-open detection bound (1500 s) was tuned at N=100, and at N=1000
+#: a partitioned node meets too few requests a pass to trip its breaker
+SIM_BIG_FALSE = {"slo_detected_breaker_open"}
+
+
+def first_trace_difference(a: bytes, b: bytes) -> str:
+    for i, (x, y) in enumerate(zip(a.decode().splitlines(),
+                                   b.decode().splitlines())):
+        if x != y:
+            return f"first differing line {i}:\n  {x}\n  {y}"
+    return f"{len(a)} and {len(b)} bytes, one a prefix of the other"
+
+
+def phase_simulator(path, counts, be, tp_rec) -> dict:
+    """The simulator group: the port's scenario library, SLO detection and
+    crash harness on the card, in this process, their clusters naming no
+    backend and so running on ``cuda``.  (1) BASELINE config 14: all ten
+    scenarios at N=100, seed 0, every verdict true; (2) the README's
+    thousand-node ``az_outage``, its verdicts those of the JAX package at
+    that size; (3) determinism: ``az_outage`` at N=100 again on ``cuda``
+    and once on ``torch`` (the box's CPU), all three traces byte-identical
+    and both ``cuda`` metrics snapshots equal; (4) config 15's detection
+    leg, read from the config-14 runs: every expected alert fires within
+    its bound and resolves, none fires outside the fault windows, and
+    ``thundering_herd`` run again gives the same detection report and
+    trace; (5) config 16: the crash matrix over all eight mutations twice
+    (every image clean, one digest), then ``run_cluster_recovery`` with
+    its full set of crash points (``scrub --once`` converges every image
+    to Valid with byte-identical reads).  Every step but the ``torch`` run
+    is a path whose K1 launches are nonzero and checked against the
+    ``cuda`` backend's recorded dispatches.  Returns the expected launches
+    of its paths."""
+    import shutil
+    import tempfile
+
+    from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
+                                                        env_str,
+                                                        set_default_backend)
+    from chunky_bits_tpu_torch.ops.backend import get_backend
+    from chunky_bits_tpu_torch.sim import crash
+    from chunky_bits_tpu_torch.sim.scenario import (SCENARIOS, fresh_workdir,
+                                                    run_scenario)
+
+    assert be.name == "cuda" and get_backend() is be, get_backend().name
+    expected = {}
+    rec = ApplyRecorder(be)
+    t_group = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="cb_sim_")
+    workdir = os.path.join(tmp, "scenario")
+
+    def step(name: str, fn, *args):
+        out = path(name, fn, *args)
+        want, mesh = rec.expected(), tp_rec.expected()
+        expected[name] = {k: want[k] + mesh[k] for k in KERNELS}
+        assert counts[name]["gf_apply"] > 0, (name, counts[name])
+        return out
+
+    def scenario(name: str, nodes: int):
+        # one workdir path for every run, so metadata paths (and so the
+        # traces) are string-identical run to run
+        return run_scenario(name, nodes=nodes, seed=SIM_SEED,
+                            workdir=fresh_workdir(workdir))
+
+    def report(tag: str, result) -> None:
+        log(f"  {tag}: {result.virtual_seconds:.1f} virtual s in "
+            f"{result.wall_seconds:.2f} s wall ({result.compression():.1f}x)"
+            f", {result.trace.count(b'\n')} trace events, "
+            f"{result.details['client_reads']} client reads, K1 launches "
+            f"{counts[tag]['gf_apply'] if tag in counts else 0}")
+
+    def failed(result) -> set:
+        return {k for k, v in result.verdicts.items() if not v}
+
+    try:
+        # (1) config 14: the library at its own size
+        results = {}
+        for name in sorted(SCENARIOS):
+            tag = f"sim_{name}"
+            result = step(tag, scenario, name, SIM_NODES)
+            assert result.ok(), (name, failed(result),
+                                 result.trace.decode()[-2000:])
+            results[name] = result
+            report(tag, result)
+        virtual = sum(r.virtual_seconds for r in results.values())
+        wall = sum(r.wall_seconds for r in results.values())
+        log(f"config 14 on cuda: {len(results)} scenarios x {SIM_NODES} "
+            f"nodes, every verdict true: {virtual:.1f} virtual s in "
+            f"{wall:.2f} s wall ({virtual / wall:.1f}x)")
+        stamp("simulator config 14")
+
+        # (2) the thousand-node run
+        big = step("sim_az_outage_n1000", scenario, "az_outage",
+                   SIM_BIG_NODES)
+        assert failed(big) == SIM_BIG_FALSE, (failed(big), big.verdicts)
+        report("sim_az_outage_n1000", big)
+        log(f"az_outage at N={SIM_BIG_NODES}: {big.compression():.1f}x; "
+            f"every verdict true but {sorted(SIM_BIG_FALSE)}, which is "
+            f"false in the JAX package at this size too")
+
+        # (3) determinism: cuda twice, torch once, one workdir path
+        first = results["az_outage"]
+        again = step("sim_az_outage_again", scenario, "az_outage",
+                     SIM_NODES)
+        report("sim_az_outage_again", again)
+        # the CLI's --backend for this one run; unset and "cuda" resolve
+        # alike, so the default goes back to what it was
+        previous = env_str(BACKEND_ENV) or "cuda"
+        set_default_backend("torch")
+        try:
+            on_torch = scenario("az_outage", SIM_NODES)
+        finally:
+            set_default_backend(previous)
+        assert get_backend() is be
+        report("az_outage on torch", on_torch)
+        for other, label in ((again, "cuda again"), (on_torch, "torch")):
+            assert other.trace == first.trace, (
+                f"az_outage trace on {label} differs from the first cuda "
+                f"run: " + first_trace_difference(first.trace, other.trace))
+        assert again.metrics == first.metrics, "cuda metrics snapshots differ"
+        assert on_torch.verdicts == first.verdicts
+        log(f"determinism: az_outage at N={SIM_NODES}, seed {SIM_SEED}: "
+            f"traces byte-identical on cuda, cuda and torch "
+            f"({len(first.trace)} bytes, {first.trace.count(b'\n')} "
+            f"events), both cuda metrics snapshots equal")
+        stamp("simulator determinism")
+
+        # (4) config 15's detection leg, from the config-14 runs
+        rows = 0
+        for name, result in sorted(results.items()):
+            slo = result.details["slo"]
+            assert slo["false_positives"] == 0, (name, slo)
+            for rule, cfg in sorted(SCENARIOS[name].slo.get(
+                    "expected", {}).items()):
+                latency = slo["detect_latency_s"].get(rule)
+                assert latency is not None and latency <= cfg["within_s"], (
+                    name, rule, slo)
+                assert result.verdicts[f"slo_detected_{rule}"], (name, rule)
+                rows += 1
+                log(f"  config 15 {name}.{rule}: detected {latency:.3f} "
+                    f"virtual s after the fault (bound {cfg['within_s']:.0f}"
+                    f" s), resolved")
+        herd = step("sim_thundering_herd_again", scenario, "thundering_herd",
+                    SIM_NODES)
+        report("sim_thundering_herd_again", herd)
+        assert herd.details["slo"] == results["thundering_herd"].details[
+            "slo"], "thundering_herd detection reports differ"
+        assert herd.trace == results["thundering_herd"].trace, (
+            "thundering_herd traces differ: " + first_trace_difference(
+                results["thundering_herd"].trace, herd.trace))
+        log(f"config 15 detection on cuda: {rows} expected alerts each "
+            f"within its bound and resolved, 0 false positives over "
+            f"{len(results)} scenarios; thundering_herd twice: equal "
+            f"detection reports and traces")
+        stamp("simulator config 15")
+
+        # (5) config 16: the crash matrix twice, then cluster recovery
+        def config16():
+            matrix_dir = os.path.join(tmp, "matrix")
+            runs = [crash.run_matrix(matrix_dir, seed=SIM_SEED)
+                    for _ in range(2)]
+            recovery = crash.run_cluster_recovery(
+                os.path.join(tmp, "recovery"), seed=SIM_SEED, points="full")
+            return runs, recovery
+
+        t0 = time.perf_counter()
+        (one, two), recovery = step("sim_crash", config16)
+        dt = time.perf_counter() - t0
+        assert one.ok(), [v.to_obj() for v in one.failed()[:5]]
+        assert one.digest == two.digest, (one.digest, two.digest)
+        assert [v.to_obj() for v in one.verdicts] \
+            == [v.to_obj() for v in two.verdicts]
+        assert sorted(one.ops_by_mutation) == sorted(crash.MUTATIONS)
+        for row in one.rows():
+            log(f"  config 16 {row['mutation']}: {row['ops']} durability "
+                f"ops, {row['ops'] + 1} crash points, {row['images']} "
+                f"images, {row['images_ok']} clean")
+        assert recovery and all(v.ok for v in recovery), \
+            [v.to_obj() for v in recovery]
+        modes = ", ".join(sorted({v.mode for v in recovery}))
+        log(f"config 16: {len(one.verdicts)} crash images over "
+            f"{one.crash_points()} crash points, all clean, digest "
+            f"{one.digest} twice; cluster recovery: {len(recovery)} images "
+            f"({modes}) each Valid after scrub --once with byte-identical "
+            f"reads; {dt:.1f} s, K1 launches "
+            f"{counts['sim_crash']['gf_apply']}")
+    finally:
+        rec.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"simulator group: {time.perf_counter() - t_group:.1f} s")
+    return expected
+
+
 def phase_timings(torch, dev, coder, data: np.ndarray,
                   parity: np.ndarray, repair_shapes=None) -> list[dict]:
     """Each kernel at the main path's launch shape beside its plain
@@ -3307,6 +3517,33 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
             f"{ms_g:.4f} ms, bound {bound_g:.4f} ms ({by_g}); equal to the "
             f"plain version")
         del x_g, got_g
+    # K1 at the d=3 p=2 read shapes: two data rows rebuilt from chunks 2,
+    # 3 and 4, for config 19's one-part and 8-part reads at 64 KiB and the
+    # simulator's 8-part reads at 4 KiB (10 launches back to back)
+    gf["small_decodes"] = []
+    dec3 = matrix.decode_matrix(matrix.build_encode_matrix(3, 2), [2, 3, 4],
+                                [0, 1])
+    t_g = gf_kernel.to_device_matrix(dec3, dev)
+    for label, n, s_ in (("config19 one part", 1, 64 << 10),
+                         ("config19", 8, 64 << 10),
+                         ("simulator", 8, SIM_CHUNK)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+        x_g = torch.randint(0, 256, (n, 3, s_), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        got_g = gf_kernel.apply_matrix(t_g, x_g)
+        assert torch.equal(got_g, gf_kernel.apply_matrix_plain(t_g, x_g))
+        ms_g = time_cuda(torch, lambda: gf_kernel.apply_matrix(t_g, x_g),
+                         inner=10)
+        plain_g = time_cuda(
+            torch, lambda: gf_kernel.apply_matrix_plain(t_g, x_g), reps=1)
+        bound_g, by_g = gf_apply_bound(n, 3, 2, s_, t_g.numel())
+        gf["small_decodes"].append({
+            "label": label, "shape": [n, 3, s_], "rows": 2, "ms": ms_g,
+            "plain_ms": plain_g, "bound_ms": bound_g, "bound_by": by_g})
+        log(f"gf_apply at {label}'s decode shape [{n}, 3, {s_}] -> [{n}, 2, "
+            f"{s_}]: {ms_g:.4f} ms, plain {plain_g:.3f} ms, bound "
+            f"{bound_g:.5f} ms ({by_g}); equal to the plain version")
+        del x_g, got_g
     # K1 at the repair planner's commonest dispatch shapes (one part, a
     # digest block or a whole chunk; a pm-msr projection or combine)
     gf["repair"] = []
@@ -3340,7 +3577,8 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
                   gf_apply_ms=ms, gf_apply_decode_ms=ms_dec)
     for key in [key for key in packed if key.startswith(("one_part",
                                                           "config5",
-                                                          "repair"))]:
+                                                          "repair",
+                                                          "small_decodes"))]:
         del packed[key]
     log(f"gf_apply_packed [{b}, {D}, {s}] -> [{b}, {P}, {s}]: encode "
         f"{k3_ms:.3f} ms, 4-erasure decode {k3_ms_dec:.3f} ms (gf_apply "
@@ -4024,6 +4262,10 @@ def main() -> int:
     # the serving_opt_in group: QoS, the SLO engine and multi-host
     expected.update(phase_serving_opt_in(path, counts, be, tp_rec))
     stamp("serving_opt_in")
+
+    # the simulator group: scenarios, SLO detection and the crash harness
+    expected.update(phase_simulator(path, counts, be, tp_rec))
+    stamp("simulator")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")

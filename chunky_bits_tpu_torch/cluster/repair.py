@@ -619,7 +619,7 @@ class RepairPlanner:
             if hi == ci or not good[hi]:
                 continue
             locs = [loc for loc in self._order(good[hi])
-                    if loc.is_local() or loc.is_slab()]
+                    if loc.is_local() or loc.is_slab() or loc.is_sim()]
             if locs:
                 candidates.append((hi, locs))
         if len(candidates) < coder.helpers:

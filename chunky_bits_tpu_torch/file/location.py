@@ -5,7 +5,9 @@ As the reference's ``Location`` (src/file/location.rs:61-68), an address
 is ``Local{path, range}`` or ``Http{url, range}``, a plain string with an
 optional ``(start,len)`` range prefix, plus the JAX package's packed
 ``slab:<root>/<name>`` addresses (a chunk inside a ``file/slab.py``
-store).  The verbs: read (ranges, zero-extension), a streaming reader, a
+store) and its ``sim:<fabric>/<node>/<chunk>`` addresses (a chunk on a
+simulated node of ``sim/fabric.py``, imported only when such a location is
+touched).  The verbs: read (ranges, zero-extension), a streaming reader, a
 zero-copy page-cache view (local and slab), write and streaming write
 (conflict policy; local writes publish atomically, slab writes append
 and commit one journal line), subfile write (content-addressed
@@ -16,9 +18,6 @@ The reference's HTTP ``file_len`` is ``todo!()`` (location.rs:394); here
 it reads Content-Length from a HEAD.  Every read and write also reports
 to the context's location-health scoreboard when a cluster set one
 (cluster/health.py).
-
-Not yet ported, and refused by ``Location.parse`` with a
-``LocationParseError`` that says so: ``sim:`` (the simulator's fabric).
 """
 
 from __future__ import annotations
@@ -48,10 +47,6 @@ from chunky_bits_tpu_torch.utils import fsio as _fsio
 
 OVERWRITE = "overwrite"
 IGNORE = "ignore"
-
-#: schemes of the JAX package that the port does not serve yet, with the
-#: ROADMAP Queue A item that brings each
-_NOT_PORTED = (("sim:", "sim", 8),)
 
 
 @dataclass(frozen=True)
@@ -375,8 +370,9 @@ class _ProfiledReader:
 class Location:
     """A storage address; value semantics, string serde."""
 
-    kind: str  # "local" | "http" | "slab"
-    target: str  # filesystem path, full URL or slab <root>/<name>
+    kind: str  # "local" | "http" | "slab" | "sim"
+    target: str  # filesystem path, full URL, slab <root>/<name> or
+    #            sim <fabric>/<node>/<chunk>
     range: Range = field(default_factory=Range)
 
     # ---- construction / parsing ----
@@ -384,11 +380,6 @@ class Location:
     @staticmethod
     def parse(s: str) -> "Location":
         rng, rest = Range.from_str_prefix(s)
-        for prefix, scheme, item in _NOT_PORTED:
-            if rest.startswith(prefix):
-                raise LocationParseError(
-                    f"{scheme} locations are not yet ported (ROADMAP "
-                    f"Queue A item {item}): {rest!r}")
         if rest.startswith("http://") or rest.startswith("https://"):
             if not urlsplit(rest).netloc:
                 raise LocationParseError(f"invalid http url: {rest!r}")
@@ -408,6 +399,14 @@ class Location:
                 raise LocationParseError(
                     f"invalid slab location: {rest!r}")
             return Location("slab", path, rng)
+        if rest.startswith("sim:"):
+            # simulated storage node (sim/fabric.py): the path names
+            # <fabric>/<node>[/<chunk>]; the bytes live in the in-process
+            # fabric registry, resolved lazily as slab: is
+            path = rest[len("sim:"):]
+            if not path:
+                raise LocationParseError("empty sim location")
+            return Location("sim", path, rng)
         if "://" in rest.split("/")[0]:
             raise LocationParseError(f"invalid location scheme: {rest!r}")
         if not rest:
@@ -423,13 +422,18 @@ class Location:
         return Location("slab", str(path), rng or Range())
 
     @staticmethod
+    def sim(path: str, rng: Optional[Range] = None) -> "Location":
+        return Location("sim", str(path), rng or Range())
+
+    @staticmethod
     def http(url: str, rng: Optional[Range] = None) -> "Location":
         if not (url.startswith("http://") or url.startswith("https://")):
             raise LocationParseError(f"not an http url: {url!r}")
         return Location("http", url, rng or Range())
 
     def __str__(self) -> str:
-        prefix = "slab:" if self.is_slab() else ""
+        prefix = "slab:" if self.is_slab() else \
+            "sim:" if self.is_sim() else ""
         if self.range.is_specified():
             return f"{self.range}{prefix}{self.target}"
         return f"{prefix}{self.target}"
@@ -442,6 +446,9 @@ class Location:
 
     def is_slab(self) -> bool:
         return self.kind == "slab"
+
+    def is_sim(self) -> bool:
+        return self.kind == "sim"
 
     def with_range(self, rng: Range) -> "Location":
         return replace(self, range=rng)
@@ -461,6 +468,17 @@ class Location:
         from chunky_bits_tpu_torch.file import slab
 
         return slab.get_store(self._slab_parts()[0])
+
+    # ---- sim addressing (sim/fabric.py) ----
+
+    def _sim_node(self) -> tuple[object, str]:
+        """(simulated node, chunk name) of a sim chunk address.  The
+        import runs only for sim locations, so production paths never
+        load the simulator (tests/test_torch_sim.py pins it)."""
+        # lint: sim-purity-ok lazy import only on the sim: address branch
+        from chunky_bits_tpu_torch.sim import fabric as sim_fabric
+
+        return sim_fabric.resolve(self.target)
 
     def slab_extent(self) -> Optional[tuple[str, int, int]]:
         """(slab file path, offset, length) of a live packed chunk, or
@@ -567,6 +585,8 @@ class Location:
             return await self._open_http_reader(cx)
         if self.is_slab():
             return await self._open_slab_reader()
+        if self.is_sim():
+            return await self._open_sim_reader()
 
         def _open_local():
             f = open(self.target, "rb")
@@ -626,6 +646,19 @@ class Location:
             return aio.ZeroExtendReader(
                 aio.TakeReader(base, min(avail, rng.length)), rng.length)
         return aio.TakeReader(base, min(rng.length, avail))
+
+    async def _open_sim_reader(self) -> aio.AsyncByteReader:
+        """The fabric applies its latency, fault and bandwidth models and
+        returns the (ranged) payload; a short range reads short and
+        ``extend_zeros`` pads, as on a local file."""
+        rng = self.range
+        if rng.start < 0 or (rng.length is not None and rng.length < 0):
+            raise LocationError(f"negative range {rng} on sim location")
+        node, name = self._sim_node()
+        base = aio.BytesReader(await node.read(name, rng.start, rng.length))
+        if rng.length is not None and rng.extend_zeros:
+            return aio.ZeroExtendReader(base, rng.length)
+        return base
 
     async def _open_http_reader(self, cx: LocationContext
                                 ) -> aio.AsyncByteReader:
@@ -785,6 +818,9 @@ class Location:
                 pass
             elif self.is_slab():
                 await self._slab_append(data)
+            elif self.is_sim():
+                node, name = self._sim_node()
+                await node.write(name, data)
             elif self.is_local():
                 try:
                     await _atomic_publish(self.target, data)
@@ -830,6 +866,12 @@ class Location:
                 # the whole body must be known before publication
                 payload = await _drain(counted)
                 await self._slab_append(payload)
+                total = len(payload)
+            elif self.is_sim():
+                # one fabric publication per chunk, as on a slab
+                payload = await _drain(counted)
+                node, name = self._sim_node()
+                await node.write(name, payload)
                 total = len(payload)
             elif self.is_local():
                 try:
@@ -917,6 +959,10 @@ class Location:
         if self.is_http():
             await self._http_send("delete", cx or default_context())
             return
+        if self.is_sim():
+            node, name = self._sim_node()
+            await node.delete(name)
+            return
         if self.is_slab():
             # GC of a packed chunk marks its extent dead for
             # SlabStore.compact; the slab file is never punched
@@ -933,6 +979,9 @@ class Location:
         if self.is_http():
             resp = await self._http_send("head", cx or default_context())
             return resp.status < 400
+        if self.is_sim():
+            node, name = self._sim_node()
+            return await node.exists(name)
         if self.is_slab():
             ext = await asyncio.to_thread(self._slab_store().lookup,
                                           self._slab_parts()[1])
@@ -940,6 +989,9 @@ class Location:
         return await asyncio.to_thread(os.path.exists, self.target)
 
     async def file_len(self, cx: Optional[LocationContext] = None) -> int:
+        if self.is_sim():
+            node, name = self._sim_node()
+            return await node.length(name)
         if self.is_slab():
             name = self._slab_parts()[1]
             ext = await asyncio.to_thread(self._slab_store().lookup, name)

@@ -252,8 +252,7 @@ class PMMSRCoder(ErasureCoder):
     # reconstruct_batch / reconstruct / reconstruct_data / encode are
     # inherited: they funnel into reconstruct_batch_picked/encode_batch
 
-    # ---- the regeneration surface (the JAX package's cluster/repair.py
-    #      drives it; the port's repair planner is ROADMAP Queue A item 6)
+    # ---- the regeneration surface (cluster/repair.py drives it)
 
     def projection_matrix(self, failed: int) -> np.ndarray:
         """[1, α] helper projection coefficients for regenerating chunk

@@ -255,10 +255,11 @@ def test_cluster_info_and_config_info(tmp_path):
     # that a slab address naming a store root, not a chunk, is refused
     pytest.param(("cp", "-", "slab:x"), "names a store root, not a chunk",
                  id="argv3-slab locations are not yet ported"),
-    # http destinations are ported (a cp there would dial the host): the
-    # case keeps its id and now checks the sim: refusal
+    # http and sim destinations are ported (a cp to http would dial the
+    # host): the case keeps its id and now checks that a sim: address
+    # outside a simulator run, with no live fabric, is refused
     pytest.param(("cp", "-", "sim:fabric/n0/x"),
-                 "sim locations are not yet ported",
+                 "no live sim fabric 'fabric'",
                  id="argv4-http locations are not yet ported"),
 ])
 def test_error_paths(cluster_yaml, tmp_path, argv, message):

@@ -76,16 +76,12 @@ def test_parse_and_display_equal_jax(s):
                                "(7,12)https://example.com/x",
                                "slab:/store/chunk", "sim:fabric/n0/c"])
 def test_schemes_not_yet_ported_are_refused(s):
-    """``sim:`` is refused by name; ``http(s)://`` and ``slab:`` are
-    ported now and parse as the JAX package parses them."""
-    if s.startswith("sim:"):
-        with pytest.raises(LocationParseError, match="not yet ported"):
-            Location.parse(s)
-        return
+    """Every scheme is ported now: ``http(s)://``, ``slab:`` and ``sim:``
+    parse as the JAX package parses them."""
     ours, theirs = Location.parse(s), jlocation.Location.parse(s)
     assert (ours.kind, ours.target, str(ours)) == \
         (theirs.kind, theirs.target, str(theirs))
-    assert ours.is_http() or ours.is_slab()
+    assert ours.is_http() or ours.is_slab() or ours.is_sim()
 
 
 def test_parse_errors_and_hierarchy():
