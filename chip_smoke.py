@@ -4,7 +4,8 @@
     python3 chip_smoke.py              # one card, every phase below
     python3 chip_smoke.py --all-gpus   # the mesh backends over every card
 
-(``--multihost-worker`` is the child process of the multi-host step.)
+(``--multihost-worker`` is the child process of the multi-host step, and
+``--sanitizer-worker`` that of the sanitizer group.)
 
 Builds the five kernels of ``chunky_bits_tpu_torch`` from ``csrc/`` (nvcc,
 at first use, into ``chunky_bits_tpu_torch/_build/``; the host codec
@@ -112,7 +113,21 @@ drives the main paths:
   ``thundering_herd`` twice with equal reports and traces); config 16's
   crash matrix over its eight mutations twice (every image clean, one
   digest) and its cluster recovery (``scrub --once`` brings every crash
-  image to Valid).
+  image to Valid);
+* the ``sanitizer`` group, the runtime concurrency sanitizer
+  (``analysis/sanitizer.py``) and the linter: config 2's ~1 GiB ingest
+  through ``FileWriteBuilder`` and a ``HostPipeline`` to the void
+  destination, the same stream on 14 path destinations read back with
+  shards 0, 1, 12 and 13 of every part lost, ``gateway.serve`` at config
+  19's geometry with QoS on (a PUT, 20 s of the config-19 flood, a Range
+  GET and a 304) and ``az_outage`` at N=100, seed 0; first in this
+  process with the sanitizer off, then in a child (``--sanitizer-worker``)
+  with ``CHUNKY_BITS_TORCH_SANITIZE=1``, whose report must be clean (0
+  leaked tasks, 0 unretrieved exceptions, 0 handoff violations), whose
+  every step must record a handoff submit, and whose scenario trace must
+  equal the sanitize-off one byte for byte; then ``python -m
+  chunky_bits_tpu_torch.analysis --json --graph-stats`` (rc 0, 0 new
+  findings) and each rule family alone, timed.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -2759,6 +2774,75 @@ def multihost_worker(argv: list[str]) -> int:
     return 0
 
 
+async def c19_flood(port: int, payload: bytes, seconds: float = 0.0
+                    ) -> dict:
+    """BASELINE config 19's mix against the gateway on ``port``, whose
+    ``/obj`` holds ``payload``: ``C19_ANTAGONISTS`` keep-alive clients of
+    tenant ``other`` flood it, and after ``C19_SATURATE_S`` the victim
+    tenant reads it ``C19_READS`` times ``C19_PACE_S`` apart (or, with
+    ``seconds``, until that long after the flood began), every victim
+    body and every eighth antagonist body held against ``payload``; a
+    503 backs off ``C19_BACKOFF_S`` and retries.  Returns the victim's
+    latency percentiles, the requests/s served and the sheds."""
+    from chunky_bits_tpu_torch.file.profiler import percentile
+
+    state = {"stop": False, "ok": 0, "shed": 0, "victim_shed": 0}
+    deadline = time.perf_counter() + seconds
+
+    async def fetch_ok(conn, extra: str, victim: bool):
+        t0 = time.perf_counter()
+        while True:
+            status, body, _e = await conn.get("/obj", extra)
+            if status == 200:
+                return time.perf_counter() - t0, body
+            assert status == 503, status
+            state["shed"] += 1
+            state["victim_shed"] += victim
+            await asyncio.sleep(C19_BACKOFF_S)
+
+    async def antagonist() -> None:
+        conn = await MiniConn(port).open()
+        try:
+            j = 0
+            while not state["stop"]:
+                _w, body = await fetch_ok(conn, "", False)
+                state["ok"] += 1
+                j += 1
+                if j % 8 == 0:
+                    assert body == payload, "antagonist body"
+        finally:
+            await conn.close()
+
+    tasks = [asyncio.ensure_future(antagonist())
+             for _ in range(C19_ANTAGONISTS)]
+    await asyncio.sleep(C19_SATURATE_S)
+    lat = []
+    conn = await MiniConn(port).open()
+    t_open = time.perf_counter()
+    try:
+        while (time.perf_counter() < deadline if seconds
+               else len(lat) < C19_READS):
+            wall, body = await fetch_ok(
+                conn, f"X-Api-Key: {C19_VICTIM_KEY}\r\n", True)
+            assert body == payload, "victim body differs"
+            state["ok"] += 1
+            lat.append(wall)
+            await asyncio.sleep(C19_PACE_S)
+    finally:
+        window = time.perf_counter() - t_open
+        state["stop"] = True
+        done = await asyncio.gather(*tasks, return_exceptions=True)
+        await conn.close()
+    errors = [e for e in done if e is not None]
+    assert not errors, errors[:2]
+    lat.sort()
+    return {"victim_p50_ms": percentile(lat, 50) * 1e3,
+            "victim_p99_ms": percentile(lat, 99) * 1e3,
+            "rps": state["ok"] / window, "ok": state["ok"],
+            "sheds": state["shed"], "victim_sheds": state["victim_shed"],
+            "victim_reads": len(lat)}
+
+
 def phase_serving_opt_in(path, counts, be, tp_rec) -> dict:
     """The serving_opt_in group: the serving plane's opt-in parts on the
     card.  (1) BASELINE config 19's QoS A/B: a gateway on ``cuda`` with
@@ -2789,7 +2873,6 @@ def phase_serving_opt_in(path, counts, be, tp_rec) -> dict:
     from chunky_bits_tpu_torch.cluster import Cluster
     from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
                                                         environ_without)
-    from chunky_bits_tpu_torch.file.profiler import percentile
     from chunky_bits_tpu_torch.gateway import serve
     from chunky_bits_tpu_torch.obs import metrics as obs_metrics
     from chunky_bits_tpu_torch.ops.backend import get_backend, get_coder
@@ -2851,64 +2934,8 @@ def phase_serving_opt_in(path, counts, be, tp_rec) -> dict:
             port = gw.port
             step(f"c19_put_{leg}", put, port, "obj", payload)
 
-            async def flood() -> dict:
-                state = {"stop": False, "ok": 0, "shed": 0,
-                         "victim_shed": 0}
-
-                async def fetch_ok(conn, extra: str, victim: bool):
-                    t0 = time.perf_counter()
-                    while True:
-                        status, body, _e = await conn.get("/obj", extra)
-                        if status == 200:
-                            return time.perf_counter() - t0, body
-                        assert status == 503, status
-                        state["shed"] += 1
-                        state["victim_shed"] += victim
-                        await asyncio.sleep(C19_BACKOFF_S)
-
-                async def antagonist() -> None:
-                    conn = await MiniConn(port).open()
-                    try:
-                        j = 0
-                        while not state["stop"]:
-                            _w, body = await fetch_ok(conn, "", False)
-                            state["ok"] += 1
-                            j += 1
-                            if j % 8 == 0:
-                                assert body == payload, "antagonist body"
-                    finally:
-                        await conn.close()
-
-                tasks = [asyncio.ensure_future(antagonist())
-                         for _ in range(C19_ANTAGONISTS)]
-                await asyncio.sleep(C19_SATURATE_S)
-                lat = []
-                conn = await MiniConn(port).open()
-                t_open = time.perf_counter()
-                try:
-                    for _ in range(C19_READS):
-                        wall, body = await fetch_ok(
-                            conn, f"X-Api-Key: {C19_VICTIM_KEY}\r\n", True)
-                        assert body == payload, "victim body differs"
-                        state["ok"] += 1
-                        lat.append(wall)
-                        await asyncio.sleep(C19_PACE_S)
-                finally:
-                    window = time.perf_counter() - t_open
-                    state["stop"] = True
-                    done = await asyncio.gather(*tasks,
-                                                return_exceptions=True)
-                    await conn.close()
-                errors = [e for e in done if e is not None]
-                assert not errors, errors[:2]
-                lat.sort()
-                return {"victim_p50_ms": percentile(lat, 50) * 1e3,
-                        "victim_p99_ms": percentile(lat, 99) * 1e3,
-                        "rps": state["ok"] / window, "ok": state["ok"],
-                        "sheds": state["shed"],
-                        "victim_sheds": state["victim_shed"]}
-
-            got = step(f"c19_qos_{leg}", lambda: asyncio.run(flood()))
+            got = step(f"c19_qos_{leg}",
+                       lambda: asyncio.run(c19_flood(port, payload)))
             fams = parse_metrics(port)
             stats = get_json(port, "/stats")
             scheds = obs_metrics.get_registry().sources("qos")
@@ -3258,7 +3285,8 @@ def phase_simulator(path, counts, be, tp_rec) -> dict:
     to Valid with byte-identical reads).  Every step but the ``torch`` run
     is a path whose K1 launches are nonzero and checked against the
     ``cuda`` backend's recorded dispatches.  Returns the expected launches
-    of its paths."""
+    of its paths, and the first ``az_outage`` run at N=100 (its trace and
+    its workdir path) for the sanitizer group."""
     import shutil
     import tempfile
 
@@ -3416,7 +3444,374 @@ def phase_simulator(path, counts, be, tp_rec) -> dict:
         rec.close()
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"simulator group: {time.perf_counter() - t_group:.1f} s")
+    return expected, {"trace": first.trace, "workdir": workdir}
+
+
+# ---- the sanitizer group ----
+
+#: the sanitized ingest and degraded read: ~1 GiB of config 2 (100 parts
+#: of d=10 p=4 at 1 MiB, and the tail)
+SAN_PARTS = DISK_PARTS
+#: config 19's QoS-on leg under the sanitizer: the flood runs this long
+SAN_GW_SECONDS = 20.0
+SAN_STEPS = ("ingest", "degraded_read", "gateway", "scenario")
+#: a range inside config 19's 512 KiB object, across a chunk boundary
+SAN_RANGE = (60000, 70999)
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    from chunky_bits_tpu_torch.ops import gf_kernel, sha256
+
+    gf_kernel.LAUNCHES = 0
+    gf_kernel.PACKED_LAUNCHES = 0
+    gf_kernel.ACC_LAUNCHES = 0
+    gf_kernel.REDUCE_PACK_LAUNCHES = 0
+    sha256.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count since ``zero_counts``."""
+    from chunky_bits_tpu_torch.ops import gf_kernel, sha256
+
+    return {"gf_apply": gf_kernel.LAUNCHES,
+            "gf_apply_packed": gf_kernel.PACKED_LAUNCHES,
+            "gf_acc": gf_kernel.ACC_LAUNCHES,
+            "gf_acc_pack": gf_kernel.REDUCE_PACK_LAUNCHES,
+            "sha256_rows": sha256.LAUNCHES}
+
+
+def active_sanitizer():
+    """The runtime sanitizer this process installed, or None (reached
+    through ``sys.modules``, as the port's hooks reach it)."""
+    mod = sys.modules.get("chunky_bits_tpu_torch.analysis.sanitizer")
+    return mod.active() if mod is not None else None
+
+
+def sanitizer_steps(blob: bytes, root: str, backend: str, path, rec,
+                    workdir: str, tag: str) -> dict:
+    """The sanitizer group's four steps, each a path ``san_<tag>_<step>``
+    of its own: (1) config 2's ~1 GiB ingest through ``FileWriteBuilder``
+    and a ``HostPipeline`` to the void destination, a sample of parts
+    held against numpy and hashlib; (2) the same stream written to d+p
+    ``path`` destinations under ``root``, the chunk files of shards 0, 1,
+    12 and 13 of every part deleted, and read back byte for byte; (3)
+    ``gateway.serve`` on a thread at config 19's geometry with QoS on:
+    a PUT, ``SAN_GW_SECONDS`` of the config-19 flood, one Range GET and
+    one ``If-None-Match`` GET -> 304; (4) ``az_outage`` at N=100, seed 0,
+    in ``workdir``, every verdict true.  Returns per step its wall
+    seconds, the handoff submits the sanitizer recorded (None when it is
+    off), its expected launches and the scenario's trace."""
+    import shutil
+
+    from chunky_bits_tpu_torch.cluster import Cluster
+    from chunky_bits_tpu_torch.file import (FileReadBuilder,
+                                            LocationsDestination)
+    from chunky_bits_tpu_torch.gateway import serve
+    from chunky_bits_tpu_torch.ops.batching import (EncodeHashBatcher,
+                                                    ReconstructBatcher)
+    from chunky_bits_tpu_torch.parallel.host_pipeline import HostPipeline
+    from chunky_bits_tpu_torch.sim.scenario import (fresh_workdir,
+                                                    run_scenario)
+    from chunky_bits_tpu_torch.utils.yamlio import yaml_load
+
+    total = SAN_PARTS * D * CHUNK + TAIL
+    out = {}
+
+    def step(name: str, fn):
+        san = active_sanitizer()
+        before = san.handoff.submits if san is not None else 0
+        t0 = time.perf_counter()
+        got = path(f"san_{tag}_{name}", fn)
+        seconds = time.perf_counter() - t0
+        out[name] = {
+            "seconds": seconds,
+            "submits": (san.handoff.submits - before
+                        if san is not None else None),
+            "expected": rec.expected()}
+        log(f"  sanitizer {tag} {name}: {seconds:.2f} s"
+            + (f", {out[name]['submits']} handoff submits"
+               if san is not None else ""))
+        return got
+
+    # (1) config 2's ingest to the void destination, after a warm-up
+    # outside the paths (the child's first launch creates its CUDA context)
+    pipeline = HostPipeline()
+    phase_object_ingest_warm(blob, pipeline)
+    rec.expected()  # drops the warm-up's dispatches
+    ref, _batcher = step("ingest", lambda: phase_object_ingest(
+        blob, pipeline, f"sanitizer {tag}", CONFIG2, SAN_PARTS,
+        backend=backend))
+    check_object_ref(ref, blob, CONFIG2, SAN_PARTS, sample=2)
+
+    # (2) on disk, 4 shards of every part lost, read back
+    def degraded_read():
+        dirs = [os.path.join(root, "disk", f"d{i}") for i in range(D + P)]
+        for d in dirs:
+            os.makedirs(d)
+
+        async def write():
+            batcher = EncodeHashBatcher(backend=backend,
+                                        max_batch=OBJECT_BATCH,
+                                        host_pipeline=pipeline)
+            try:
+                return await object_builder(
+                    LocationsDestination(dirs), batcher, pipeline,
+                    backend=backend).write(CyclicSource(blob, total))
+            finally:
+                await batcher.aclose()
+
+        async def read(ref):
+            batcher = ReconstructBatcher(backend=backend)
+            try:
+                await read_and_compare(
+                    FileReadBuilder(ref).with_backend(backend)
+                    .with_batcher(batcher), blob, total)
+            finally:
+                await batcher.aclose()
+
+        ref = asyncio.run(write())
+        for part in ref.parts:
+            chunks = part.data + part.parity
+            for i in LOST:
+                os.remove(str(chunks[i].locations[0]))
+        t0 = time.perf_counter()
+        asyncio.run(read(ref))
+        dt = time.perf_counter() - t0
+        log(f"  sanitizer {tag}: {total / 2**30:.3f} GiB read back with "
+            f"shards {LOST} of every part lost in {dt:.2f} s, equal to "
+            f"the source")
+        shutil.rmtree(os.path.join(root, "disk"))
+
+    step("degraded_read", degraded_read)
+    pipeline.close()
+
+    # (3) the gateway at config 19's geometry, QoS on
+    top = os.path.join(root, "c19")
+    os.makedirs(top)
+    conf = cluster_yaml(top, CONFIG9, backend, cache_bytes=C19_CACHE,
+                        extra={"qos": {"enabled": True, "tenants": {
+                            "victim": {"weight": 4,
+                                       "keys": [C19_VICTIM_KEY]}}}})
+    payload = np.random.default_rng(SEED + 12).integers(
+        0, 256, C19_OBJECT, dtype=np.uint8).tobytes()
+
+    def gateway():
+        with open(conf) as f:
+            cluster = Cluster.from_obj(yaml_load(f.read()))
+        gw = ServerThread(lambda on_ready: serve(
+            cluster, "127.0.0.1", 0, max_concurrent_gets=C19_CAP,
+            on_ready=on_ready), f"gateway-{tag}")
+        try:
+            status, _h, resp = http_request(
+                gw.port, "PUT", "/obj", body_parts=(payload,),
+                body_len=len(payload))
+            resp.read()
+            assert status == 200, status
+            got = asyncio.run(c19_flood(gw.port, payload, SAN_GW_SECONDS))
+            lo, hi = SAN_RANGE
+            status, headers, resp = http_request(
+                gw.port, "GET", "/obj", {"Range": f"bytes={lo}-{hi}"})
+            assert status == 206, status
+            assert resp.read() == payload[lo:hi + 1], "range body differs"
+            status, headers, resp = http_request(gw.port, "GET", "/obj")
+            assert status == 200 and resp.read() == payload
+            status, _h, resp = http_request(
+                gw.port, "GET", "/obj", {"If-None-Match": headers["etag"]})
+            assert status == 304 and resp.read() == b"", status
+        finally:
+            gw.stop()
+        log(f"  sanitizer {tag} gateway: config 19 QoS on for "
+            f"{SAN_GW_SECONDS:.0f} s: {got['ok']} bodies, "
+            f"{got['rps']:.1f} requests/s, victim p99 "
+            f"{got['victim_p99_ms']:.2f} ms over {got['victim_reads']} "
+            f"reads, {got['sheds']} sheds ({got['victim_sheds']} of the "
+            f"victim); a Range GET (206) and a 304, every body equal to "
+            f"its source")
+
+    step("gateway", gateway)
+
+    # (4) the scenario, in the simulator group's workdir path
+    def scenario():
+        result = run_scenario("az_outage", nodes=SIM_NODES, seed=SIM_SEED,
+                              workdir=fresh_workdir(workdir))
+        assert result.ok(), [k for k, v in result.verdicts.items() if not v]
+        return result
+
+    result = step("scenario", scenario)
+    out["scenario"]["trace"] = result.trace
+    shutil.rmtree(workdir, ignore_errors=True)
+    for name in SAN_STEPS:
+        assert out[name]["expected"]["gf_apply"] > 0, (name, out[name])
+    return out
+
+
+def sanitizer_worker(argv: list[str]) -> int:
+    """The sanitizer group's child (``--sanitizer-worker OUT WORKDIR
+    BACKEND``), started with ``CHUNKY_BITS_TORCH_SANITIZE=1``: its first
+    ``HostPipeline`` installs the runtime sanitizer, whose policy then
+    instruments every event loop it makes, ``serve`` its serving loop and
+    ``sim.run`` the virtual one.  Runs ``sanitizer_steps`` on ``BACKEND``
+    with each step's launch counts set to 0 before it, then writes the
+    counts, the expected launches, the seconds, the submits, the
+    sanitizer's report and the scenario's trace under ``OUT``; exits 1
+    unless the report is clean and every step recorded a submit."""
+    import shutil
+    import tempfile
+
+    from chunky_bits_tpu_torch.cluster.tunables import sanitize_enabled
+    from chunky_bits_tpu_torch.ops.backend import get_coder
+
+    out_dir, workdir, backend = argv
+    assert sanitize_enabled(), "the worker runs with the sanitizer on"
+    be = get_coder(D, P, backend).backend
+    rec = ApplyRecorder(be)
+    counts = {}
+
+    def path(name: str, fn):
+        zero_counts()
+        got = fn()
+        counts[name] = read_counts()
+        return got
+
+    blob = np.random.default_rng(SEED + 4).integers(
+        0, 256, BLOB_BYTES, dtype=np.uint8).tobytes()
+    root = tempfile.mkdtemp(prefix="cb_san_")
+    try:
+        steps = sanitizer_steps(blob, root, backend, path, rec, workdir,
+                                "on")
+    finally:
+        rec.close()
+        shutil.rmtree(root, ignore_errors=True)
+    from chunky_bits_tpu_torch.analysis import sanitizer
+
+    report = sanitizer.report()
+    log(report.render())
+    with open(os.path.join(out_dir, "trace"), "wb") as f:
+        f.write(steps["scenario"].pop("trace"))
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump({"counts": counts, "steps": steps, "ok": report.ok(),
+                   "stalls": report.stalls, "report": report.render()}, f)
+    missing = [n for n in SAN_STEPS if not steps[n]["submits"]]
+    return 0 if report.ok() and not missing else 1
+
+
+def phase_sanitizer(blob: bytes, path, counts, be, tp_rec, sim_off: dict,
+                    smi: str) -> dict:
+    """The sanitizer group: the four ``sanitizer_steps`` with the runtime
+    concurrency sanitizer off, in this process, and on, in a child
+    (``--sanitizer-worker``, since ``install`` swaps the process-wide
+    loop policy) on ``cuda`` with ``CHUNKY_BITS_TORCH_SANITIZE=1``.  The
+    child's report must be clean (0 leaked tasks, 0 unretrieved
+    exceptions, 0 handoff violations), every step must record a handoff
+    submit and launch K1 as its recorded dispatches call for, and the
+    scenario's trace must equal the simulator group's sanitize-off run
+    byte for byte.  Stalls stay advisory and are printed, with each
+    step's wall seconds off and on.  Returns the expected launches of its
+    paths, the child's among them."""
+    import shutil
+    import tempfile
+
+    from chunky_bits_tpu_torch.cluster.tunables import (SANITIZE_ENV,
+                                                        environ_without)
+
+    expected = {}
+    rec = ApplyRecorder(be)
+    t_group = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cb_san_")
+    try:
+        off = sanitizer_steps(blob, root, be.name, path, rec,
+                              sim_off["workdir"], "off")
+    finally:
+        rec.close()
+        shutil.rmtree(root, ignore_errors=True)
+    assert off["scenario"]["trace"] == sim_off["trace"], (
+        "az_outage trace differs from the simulator group's: "
+        + first_trace_difference(sim_off["trace"], off["scenario"]["trace"]))
+    for name in SAN_STEPS:
+        want, mesh = off[name]["expected"], tp_rec.expected()
+        expected[f"san_off_{name}"] = {k: want[k] + mesh[k] for k in KERNELS}
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="cb_san_out_") as out_dir:
+        env = dict(environ_without(SANITIZE_ENV), **{SANITIZE_ENV: "1"})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--sanitizer-worker", out_dir, sim_off["workdir"], be.name],
+            cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  | {line}")
+        assert proc.returncode == 0, (proc.returncode, proc.stderr[-4000:])
+        with open(os.path.join(out_dir, "result.json")) as f:
+            on = json.load(f)
+        with open(os.path.join(out_dir, "trace"), "rb") as f:
+            trace = f.read()
+    assert on["ok"], on["report"]
+    assert trace == sim_off["trace"], (
+        "sanitized az_outage trace differs from the sanitize-off run: "
+        + first_trace_difference(sim_off["trace"], trace))
+    for name in SAN_STEPS:
+        step = on["steps"][name]
+        assert step["submits"] >= 1, (name, step)
+        tag = f"san_on_{name}"
+        counts[tag] = on["counts"][tag]
+        expected[tag] = step["expected"]
+        assert counts[tag]["gf_apply"] > 0, (tag, counts[tag])
+    log(f"sanitizer group on {be.name} ({smi}): report clean (0 leaked "
+        f"tasks, 0 unretrieved exceptions, 0 handoff violations); "
+        f"{len(on['stalls'])} loop stall(s), advisory"
+        + "".join(f"\n  STALL: {s}" for s in on["stalls"]))
+    for name in SAN_STEPS:
+        off_s = off[name]["seconds"]
+        step = on["steps"][name]
+        log(f"  {name}: wall {off_s:.2f} s sanitizer off, "
+            f"{step['seconds']:.2f} s on ({step['seconds'] / off_s:.3f}x); "
+            f"{step['submits']} handoff submits; K1 launches "
+            f"{counts['san_on_' + name]['gf_apply']} on, "
+            f"{counts['san_off_' + name]['gf_apply']} off")
+    log(f"  az_outage at N={SIM_NODES}, seed {SIM_SEED}: sanitized trace "
+        f"byte-identical to the sanitize-off run ({len(trace)} bytes); "
+        f"the child took {child_s:.1f} s")
+    phase_lint(here)
+    log(f"sanitizer group: {time.perf_counter() - t_group:.1f} s")
     return expected
+
+
+#: the linter's families, each timed alone by the lint step
+LINT_FAMILIES = ("CB1", "CB2", "CB3", "CB4")
+
+
+def phase_lint(here: str) -> None:
+    """``python -m chunky_bits_tpu_torch.analysis --json --graph-stats``
+    over the port on the card's box: exit 0, 0 new findings, 0 baselined
+    and 0 stale; then each family alone (``--select CBn``), timed."""
+    def lint(*args) -> tuple[dict, float]:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "chunky_bits_tpu_torch.analysis",
+             "--json", *args], cwd=here, capture_output=True, text=True,
+            timeout=300)
+        seconds = time.perf_counter() - t0
+        assert proc.returncode == 0, (args, proc.stdout[-4000:],
+                                      proc.stderr[-4000:])
+        return json.loads(proc.stdout), seconds
+
+    report, seconds = lint("--graph-stats")
+    assert report["ok"] and report["new"] == [] and not report["errors"]
+    assert report["baselined"] == 0 and report["stale_baseline_entries"] \
+        == 0, report
+    graph = report["graph"]
+    log(f"lint: python -m chunky_bits_tpu_torch.analysis --json "
+        f"--graph-stats: rc 0, 0 new, 0 baselined, 0 stale, {seconds:.2f} s"
+        f"; graph {graph['functions']} functions, {graph['edges']} edges, "
+        f"{graph['worker_roots']} worker roots; cfg "
+        f"{graph['cfg_functions']} functions, {graph['cfg_blocks']} blocks")
+    for family in LINT_FAMILIES:
+        report, seconds = lint("--select", family)
+        assert report["new"] == [], (family, report["new"])
+        log(f"  lint {family}xx alone: {seconds:.2f} s, 0 new")
 
 
 def phase_timings(torch, dev, coder, data: np.ndarray,
@@ -4058,10 +4453,11 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--multihost-worker"]:
         return multihost_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--sanitizer-worker"]:
+        return sanitizer_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from chunky_bits_tpu_torch.ops import gf_kernel, sha256
     from chunky_bits_tpu_torch.ops.backend import (get_backend, get_coder,
                                                    register_backend)
     from chunky_bits_tpu_torch.ops.mesh_backend import MeshBackend
@@ -4102,17 +4498,9 @@ def main() -> int:
     counts: dict[str, dict[str, int]] = {}
 
     def path(name: str, fn, *args):
-        gf_kernel.LAUNCHES = 0
-        gf_kernel.PACKED_LAUNCHES = 0
-        gf_kernel.ACC_LAUNCHES = 0
-        gf_kernel.REDUCE_PACK_LAUNCHES = 0
-        sha256.LAUNCHES = 0
+        zero_counts()
         out = fn(*args)
-        counts[name] = {"gf_apply": gf_kernel.LAUNCHES,
-                        "gf_apply_packed": gf_kernel.PACKED_LAUNCHES,
-                        "gf_acc": gf_kernel.ACC_LAUNCHES,
-                        "gf_acc_pack": gf_kernel.REDUCE_PACK_LAUNCHES,
-                        "sha256_rows": sha256.LAUNCHES}
+        counts[name] = read_counts()
         return out
 
     walk = -(-INGEST_PARTS // (be.max_block_bytes // (D * CHUNK)))
@@ -4264,8 +4652,15 @@ def main() -> int:
     stamp("serving_opt_in")
 
     # the simulator group: scenarios, SLO detection and the crash harness
-    expected.update(phase_simulator(path, counts, be, tp_rec))
+    sim_expected, sim_off = phase_simulator(path, counts, be, tp_rec)
+    expected.update(sim_expected)
     stamp("simulator")
+
+    # the sanitizer group: ingest, gateway and a scenario with the runtime
+    # concurrency sanitizer off here and on in a child, then the linter
+    expected.update(phase_sanitizer(blob, path, counts, be, tp_rec, sim_off,
+                                    smi))
+    stamp("sanitizer")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")

@@ -365,6 +365,9 @@ async def _run_command(args, config) -> int:
             # top-level ctrl-c handler of the
             # scrub command: asyncio.run is tearing this coroutine down
             # right after — nothing awaits it as a child task
+            # lint: cancel-safety-ok top-level ctrl-c handler of the
+            # scrub command: asyncio.run is tearing this coroutine down
+            # right after — nothing awaits it as a child task
             except (KeyboardInterrupt, asyncio.CancelledError):
                 pass
     elif cmd == "http-gateway":

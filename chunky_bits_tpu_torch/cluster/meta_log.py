@@ -189,6 +189,10 @@ def extract_index_meta(payload) -> tuple[Optional[list], Optional[list]]:
     # ANY payload that is not a well-formed file reference (foreign
     # metadata, future schema) publishes without one and the fast
     # paths fall back — a failure here must never block the write ack
+    # lint: broad-except-ok the projection is an optional accelerator:
+    # ANY payload that is not a well-formed file reference (foreign
+    # metadata, future schema) publishes without one and the fast
+    # paths fall back — a failure here must never block the write ack
     except Exception:
         return None, None
 
@@ -578,6 +582,10 @@ class MetaLogStore:
             # the GC grace window (like the slab journal's `t` field —
             # operator forensics, never a duration; it must stay real
             # even inside a simulation)
+            # lint: clock-ok wall-clock publish stamp for humans and
+            # the GC grace window (like the slab journal's `t` field —
+            # operator forensics, never a duration; it must stay real
+            # even inside a simulation)
             published = time.time()
             gen = self._gen + 1
             record = {"o": "p", "n": key, "g": gen, "s": log,
@@ -618,6 +626,8 @@ class MetaLogStore:
                 raise FileNotFoundError(
                     f"no ref {key!r} in meta log {self.root}")
             # wall-clock deletion stamp, same contract
+            # as the publish stamp above
+            # lint: clock-ok wall-clock deletion stamp, same contract
             # as the publish stamp above
             stamp = time.time()
             gen = self._gen + 1

@@ -180,6 +180,8 @@ def _reap_stale_temps(dirname: str) -> None:
         return
     # file mtimes are wall-clock; comparing them against anything else
     # would misclassify every temp inside a simulation
+    # lint: clock-ok file mtimes are wall-clock; comparing them against
+    # anything else would misclassify every temp inside a simulation
     now = time.time()
     for entry in entries:
         if not is_publish_temp(entry):
@@ -257,6 +259,10 @@ class MetadataPath:
             # a user-supplied local hook, unbounded on purpose: a timeout
             # would orphan a zombie and ack the write with the hook's
             # outcome unknown (reference parity: put_script blocks)
+            # lint: unbounded-deadline-ok user-supplied local hook; a
+            # timeout here would orphan a zombie and ack the write with
+            # the hook's outcome unknown — runaway hooks are the
+            # operator's contract (reference parity: put_script blocks)
             code = await proc.wait()
             if self.fail_on_script_error and code != 0:
                 # Distinguish signal-death from a nonzero exit like the
@@ -327,6 +333,9 @@ class MetadataGit:
         proc = await asyncio.create_subprocess_exec(
             "git", *args, cwd=self.meta_path.path)
         # a local git child on a local repo, unbounded on purpose:
+        # abandoning wait() would leak a zombie and race the next
+        # add/commit against this one's index lock
+        # lint: unbounded-deadline-ok local git child on a local repo;
         # abandoning wait() would leak a zombie and race the next
         # add/commit against this one's index lock
         code = await proc.wait()

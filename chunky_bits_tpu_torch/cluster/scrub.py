@@ -609,6 +609,8 @@ class ScrubDaemon:
                     pipeline=pipe)
             # a failed repair is a counter and a
             # retry next pass, never a dead daemon mid-namespace
+            # lint: broad-except-ok a failed repair is a counter and a
+            # retry next pass, never a dead daemon mid-namespace
             except Exception:
                 self._bump(repair_failures=1)
                 continue
@@ -721,6 +723,9 @@ class ScrubDaemon:
             # a failed pass must never silently
             # end continuous scrubbing for the process's remaining
             # lifetime; logged, and the next interval retries
+            # lint: broad-except-ok a failed pass must never silently
+            # end continuous scrubbing for the process's remaining
+            # lifetime; logged, and the next interval retries
             except Exception:
                 log.exception("scrub pass failed; retrying after "
                               "interval")
@@ -751,10 +756,18 @@ class ScrubDaemon:
             # line above and every wait inside the pass loop is a
             # bounded sleep slice (TokenBucket.MAX_SLEEP) or bounded
             # I/O, so cancellation delivery is prompt by construction
+            # lint: unbounded-await-ok the task was cancelled on the
+            # line above and every wait inside the pass loop is a
+            # bounded sleep slice (TokenBucket.MAX_SLEEP) or bounded
+            # I/O, so cancellation delivery is prompt by construction
             await task
         except asyncio.CancelledError:
             pass
         # stop() returning means the task is
+        # gone — a pass that died with a stray exception must not
+        # re-raise here and abort the caller's shutdown sequence
+        # (gateway serve's finally runs runner.cleanup after this)
+        # lint: broad-except-ok stop() returning means the task is
         # gone — a pass that died with a stray exception must not
         # re-raise here and abort the caller's shutdown sequence
         # (gateway serve's finally runs runner.cleanup after this)

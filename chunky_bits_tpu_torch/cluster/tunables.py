@@ -26,9 +26,12 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from chunky_bits_tpu_torch.errors import SerdeError
+
+if TYPE_CHECKING:
+    from chunky_bits_tpu_torch.file.location import LocationContext
 
 #: prefix of every environment variable the port reads
 ENV_PREFIX = "CHUNKY_BITS_TORCH_"
@@ -137,6 +140,13 @@ COORDINATOR_ADDRESS_ENV = ENV_PREFIX + "COORDINATOR_ADDRESS"
 NUM_PROCESSES_ENV = ENV_PREFIX + "NUM_PROCESSES"
 PROCESS_ID_ENV = ENV_PREFIX + "PROCESS_ID"
 
+#: flag: the opt-in runtime concurrency sanitizer (analysis/sanitizer.py):
+#: event-loop stall watchdog, task-leak registry, host-pipeline handoff
+#: checks.  Off by default (a correctness tool, not a perf mode); read at
+#: the activation points (HostPipeline construction, gateway serve), so
+#: set it before the process builds its first pipeline or loop
+SANITIZE_ENV = ENV_PREFIX + "SANITIZE"
+
 _FALSY = ("", "0", "false", "no", "off")
 
 
@@ -153,6 +163,15 @@ def env_flag(name: str, *, default: bool = False) -> bool:
     if raw is None:
         return default
     return raw.strip().lower() not in _FALSY
+
+
+def sanitize_enabled() -> bool:
+    """True when ``$CHUNKY_BITS_TORCH_SANITIZE`` asks for the runtime
+    concurrency sanitizer.  Callers gate both the instrumentation and
+    the ``analysis.sanitizer`` import on this, so the off path never
+    loads the instrumentation module (pinned by
+    tests/test_torch_sanitizer.py)."""
+    return env_flag(SANITIZE_ENV)
 
 
 def xor_schedule_enabled(*, default: bool = False) -> bool:
@@ -477,7 +496,7 @@ class Tunables:
                 obj[name] = dict(getattr(self, name))
         return obj
 
-    def location_context(self):
+    def location_context(self) -> "LocationContext":
         """The cluster's shared ``LocationContext`` (its health scoreboard
         is set by ``Cluster``)."""
         return self._location_context

@@ -162,6 +162,11 @@ class ChunkCache:
             # the winner sets the event in a finally even on error or
             # cancel (and `died` hands the flight to a waiter), so this
             # waits exactly as long as the winner's fetch
+            # lint: unbounded-await-ok the winner sets the event in a
+            # finally even on error/cancel (and `died` hands the flight
+            # to a waiter), so this waits exactly as long as the
+            # winner's fetch — which is itself bounded by the location
+            # layer's network timeouts
             await flight.event.wait()
             if flight.died:
                 continue  # winner never produced an outcome: take over

@@ -184,6 +184,9 @@ class LocationContext:
         # retrieve the primer's outcome either way, so it never surfaces
         # as a task exception nobody retrieved
         try:
+            # lint: unbounded-deadline-ok primer is done or was
+            # cancelled two lines up — this await only retrieves
+            # the already-settled outcome
             await primer
         except (asyncio.CancelledError, StopAsyncIteration):
             pass
@@ -235,6 +238,9 @@ async def _publish_atomically(target: str, write_body) -> int:
     try:
         total = await write_body(tmp)
         if mode is not None:
+            # lint: async-blocking-ok bounded local chmod on the
+            # staging file; sync keeps publication atomic under
+            # cancellation (see docstring)
             os.chmod(tmp, mode)
         _fsio.replace(tmp, target)
         return total

@@ -331,7 +331,9 @@ class FileWriteBuilder:
                 # each staged part carries its permits until its write
                 # task completes (released in _write_part / on failure
                 # by cancel_all), so acquire/release pair across tasks
+                # lint: lock-discipline-ok permit transferred to the write task
                 await sem.acquire()
+                # lint: lock-discipline-ok permit transferred to the write task
                 await encode_ahead.acquire()
                 if view_parts is not None and block is None:
                     mv = await view_parts(part_bytes, stage_size)
@@ -342,8 +344,10 @@ class FileWriteBuilder:
                                             ).reshape(-1, d, chunk)
                         # permits for the parts beyond the first
                         for _ in range(blk.shape[0] - 1):
-                                        await sem.acquire()
-                                        await encode_ahead.acquire()
+                            # lint: lock-discipline-ok permit transferred to the write task
+                            await sem.acquire()
+                            # lint: lock-discipline-ok permit transferred to the write task
+                            await encode_ahead.acquire()
                         total_bytes += blk.shape[0] * part_bytes
                         block, lens = blk, [part_bytes] * blk.shape[0]
                         flush()

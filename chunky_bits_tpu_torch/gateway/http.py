@@ -732,6 +732,9 @@ def make_app(cluster: Cluster,
         # granted one is released in the finally below
         if qos_sched is not None:
             try:
+                # lint: lock-discipline-ok a failed acquire grants no
+                # slot (shed/cancel paths hold nothing to release);
+                # granted slots release in the try/finally just below
                 await qos_sched.acquire("read", request["cb_tenant"],
                                         cost=length)
             except qos_shed_exc:
@@ -844,6 +847,9 @@ def make_app(cluster: Cluster,
         if qos_sched is not None:
             cost = int(declared) if declared is not None else None
             try:
+                # lint: lock-discipline-ok a failed acquire grants no
+                # slot (shed/cancel paths hold nothing to release);
+                # granted slots release in the try/finally just below
                 await qos_sched.acquire("write", request["cb_tenant"],
                                         cost=cost)
             except qos_shed_exc:
@@ -1083,6 +1089,8 @@ def make_app(cluster: Cluster,
             # one bad beat (a torn spool file mid-teardown, a foreign
             # snapshot shape) must not kill alerting for the process's
             # life: log, and the next tick retries
+            # lint: broad-except-ok degrade-never-die heartbeat; the
+            # failure is logged and the next tick retries
             except Exception as err:
                 log.warning("slo evaluation tick failed: %s", err)
             await asyncio.sleep(slo_eval)
@@ -1159,7 +1167,8 @@ async def serve(cluster: Cluster, host: str = "127.0.0.1",
     ``reuse_port=True``.  ``on_ready`` fires with the bound port once
     the listener accepts connections (the worker readiness handshake;
     also handy for tests)."""
-    from chunky_bits_tpu_torch.cluster.tunables import gateway_workers
+    from chunky_bits_tpu_torch.cluster.tunables import (gateway_workers,
+                                                        sanitize_enabled)
 
     if workers is None:
         workers = gateway_workers()
@@ -1175,6 +1184,13 @@ async def serve(cluster: Cluster, host: str = "127.0.0.1",
             on_ready=on_ready)
         return
 
+    if sanitize_enabled():
+        # opt-in runtime concurrency sanitizer: instrument the serving
+        # loop (stall watchdog + task registry), read here, at the one
+        # moment the gateway's loop is known
+        from chunky_bits_tpu_torch.analysis.sanitizer import get_monitor
+
+        get_monitor().instrument_loop(asyncio.get_running_loop())
     # continuous scrub rides the serving loop when the cluster's
     # `scrub_bytes_per_sec` tunable asks for it (cluster/scrub.py; off =
     # no daemon object).  Single-process serve only: a pre-forked fleet
@@ -1209,6 +1225,9 @@ async def serve(cluster: Cluster, host: str = "127.0.0.1",
             await asyncio.sleep(3600)
     # ctrl-c or cancel is the shutdown signal of the serve park: the
     # finally's graceful teardown runs before exit
+    # lint: cancel-safety-ok ctrl-c/cancel IS the shutdown signal for
+    # the serve park; swallowing it hands control to the finally's
+    # graceful teardown (scrub stop + runner cleanup) before exit
     except (KeyboardInterrupt, asyncio.CancelledError):
         pass
     finally:

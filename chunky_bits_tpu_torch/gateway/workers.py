@@ -377,9 +377,15 @@ async def serve_workers(cluster, host: str, port: int, workers: int,
         on_ready(sup.port)
     try:
         # the serve park (a bounded-sleep loop); ctrl-c cancels it
+        # lint: unbounded-await-ok the serve park itself (internally a
+        # bounded-sleep loop); resolves on ctrl-c cancellation exactly
+        # like single-process serve's sleep loop
         await sup.wait()
     # ctrl-c or cancel is the shutdown signal: the finally tears the
     # fleet down before exit
+    # lint: cancel-safety-ok ctrl-c/cancel IS the shutdown signal for
+    # the supervisor park; swallowing it hands control to the finally's
+    # graceful fleet teardown (sup.stop) before exit
     except (KeyboardInterrupt, asyncio.CancelledError):
         pass
     finally:
@@ -415,6 +421,9 @@ async def _worker_amain(spec: dict) -> None:
               flush=True)
 
     # cancelled and awaited in the finally below
+    # lint: task-custody-ok cancelled-and-awaited in the finally below;
+    # the only statement before the try is ensure_future(stop.wait()),
+    # which cannot raise
     serve_task = asyncio.ensure_future(serve(
         cluster, host=spec["host"], port=spec["port"], workers=1,
         reuse_port=True, on_ready=announce,
@@ -424,12 +433,17 @@ async def _worker_amain(spec: dict) -> None:
         # the worker's lifetime is the service's: this resolves on
         # SIGTERM (stop_task) or a serve crash (serve_task), and the
         # supervisor escalates to SIGKILL
+        # lint: unbounded-await-ok the worker's lifetime IS the service
+        # lifetime: this resolves on SIGTERM (stop_task) or a serve
+        # crash (serve_task), and the supervisor escalates to SIGKILL
         await asyncio.wait({serve_task, stop_task},
                            return_when=asyncio.FIRST_COMPLETED)
         if stop.is_set() and not serve_task.done():
             # drain window: /healthz already answers 503 draining —
             # give in-flight requests (and one balancer poll) a beat
             # before the listener is torn down
+            # lint: unbounded-await-ok bounded by timeout=_DRAIN_SECONDS
+            # (0.5 s), well under the supervisor's SIGKILL escalation
             await asyncio.wait({serve_task}, timeout=_DRAIN_SECONDS)
     finally:
         serve_task.cancel()

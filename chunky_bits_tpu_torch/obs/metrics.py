@@ -341,6 +341,8 @@ def _status_class(status: int) -> str:
 #: hot serve path on the one registry lock; the families are fixed, so
 #: cache them once (the build race is benign: the registry's
 #: get-or-create hands every builder the same Family objects)
+# lint: loop-shared-ok deliberate process-wide cache of process-wide
+# Family singletons; Family cells are themselves lock-guarded
 _EVENT_FAMILIES: dict[str, Family] = {}
 
 
@@ -1039,6 +1041,8 @@ class LoopLagMonitor:
     def start(self, loop) -> None:
         self._loop = loop
         # loop lag is defined against the loop's own clock
+        # lint: clock-escape-ok loop lag is defined against the loop's
+        # OWN clock; under sim the virtual loop makes this virtual too
         self._expected = loop.time() + self._interval
         self._handle = loop.call_later(self._interval, self._tick)
 

@@ -84,7 +84,10 @@ INACTIVE = "inactive"
 PENDING = "pending"
 FIRING = "firing"
 ALERT_STATES = (INACTIVE, PENDING, FIRING)
+# lint: loop-shared-ok write-once module constants (state<->rank maps),
+# read-only after import — no cross-loop mutation exists
 _STATE_RANK = {INACTIVE: 0, PENDING: 1, FIRING: 2}
+# lint: loop-shared-ok same write-once constant, inverted
 _RANK_STATE = {rank: state for state, rank in _STATE_RANK.items()}
 
 #: firing-history ring bound (engine-lifetime memory of resolved

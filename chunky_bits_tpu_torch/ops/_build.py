@@ -80,9 +80,16 @@ def build_all() -> dict[str, str]:
     """Compile every source whose library is missing, all at once, and
     return ``{name: library path}``."""
     global BUILD_SECONDS
+    # lint: clock-escape-ok times the REAL one-time nvcc build for the
+    # build report (BUILD_SECONDS); no simulated duration or trace
+    # reads it, and a scenario reaches it only through a first-use build
     t0 = time.perf_counter()
+    # lint: fsio-escape-ok the build cache holds compiled libraries, not
+    # stored data: the crash harness has no durability op to record here
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: library_path(n) for n in SOURCES}
+    # lint: fsio-escape-ok the flock target of the build cache carries
+    # no data; creating it is idempotent
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
@@ -91,6 +98,7 @@ def build_all() -> dict[str, str]:
                 _compile(todo, paths)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
+    # lint: clock-escape-ok same real build timer
     BUILD_SECONDS = time.perf_counter() - t0
     return paths
 
@@ -109,6 +117,9 @@ def _compile(names: list[str], paths: dict[str, str]) -> None:
             out, _ = proc.communicate(timeout=600)
             BUILD_LOG[n] = out.decode(errors="replace")
             if proc.returncode == 0:
+                # lint: fsio-escape-ok a library is written under a private name
+                # and renamed into place, keyed by its source hash: a torn build is
+                # never loaded, and no stored object depends on it
                 os.replace(tmp, paths[n])
             else:
                 failed.append(n)
@@ -118,6 +129,7 @@ def _compile(names: list[str], paths: dict[str, str]) -> None:
                 proc.kill()
                 proc.wait()
             if os.path.exists(tmp):
+                # lint: fsio-escape-ok drops a failed build's private temp file
                 os.remove(tmp)
     if failed:
         raise ErasureError("nvcc failed for " + ", ".join(
@@ -152,8 +164,10 @@ def host_library() -> str:
         src = f.read()
     tag = hashlib.sha256(src + b"\0" + " ".join(HOST_FLAGS).encode()
                          + b"\0" + _cpu_tag()).hexdigest()[:16]
+    # lint: fsio-escape-ok the build cache, as in build_all
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"libcbgf-{tag}.so")
+    # lint: fsio-escape-ok the host build's flock target carries no data
     with open(os.path.join(BUILD_DIR, ".host.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
@@ -169,6 +183,8 @@ def _compile_host(path: str) -> None:
     if gxx is None:
         raise ErasureError("g++ not found: the native host codec cannot be "
                            "built")
+    # lint: clock-escape-ok times the REAL one-time g++ build for the
+    # build report (HOST_BUILD); no simulated duration reads it
     t0 = time.perf_counter()
     tmp = f"{path}.tmp.{os.getpid()}"
     HOST_BUILD["log"] = []
@@ -184,12 +200,16 @@ def _compile_host(path: str) -> None:
                 proc.stdout.decode(errors="replace")
                 + proc.stderr.decode(errors="replace"))
             if proc.returncode == 0:
+                # lint: fsio-escape-ok renamed into place under its source and CPU
+                # key, as the kernels are: a torn build is never loaded
                 os.replace(tmp, path)
                 HOST_BUILD["flags"] = " ".join(extra + HOST_FLAGS)
+                # lint: clock-escape-ok same real build timer
                 HOST_BUILD["seconds"] = time.perf_counter() - t0
                 return
     finally:
         if os.path.exists(tmp):
+            # lint: fsio-escape-ok drops a failed build's private temp file
             os.remove(tmp)
     raise ErasureError("failed to build the native gf256 codec:\n"
                        + "\n".join(HOST_BUILD["log"]))

@@ -73,6 +73,9 @@ class _CoalescingBatcher:
         if self._task is None or self._task.done():
             self._task = asyncio.create_task(self._drain())
         # resolved (result or exception) by _dispatch in every outcome
+        # lint: unbounded-await-ok resolved (result or exception) by
+        # _dispatch in every outcome, and the device work underneath
+        # raises on a failed launch instead of parking
         return await fut
 
     async def _drain(self) -> None:
@@ -101,6 +104,8 @@ class _CoalescingBatcher:
                 self._run_group, key, [g[1] for g in group])
         # delivered to every waiter via fut.set_exception;
         # CancelledError additionally re-raised
+        # lint: broad-except-ok delivered to every waiter via
+        # fut.set_exception; CancelledError additionally re-raised
         except BaseException as err:
             for _, _, fut in group:
                 if not fut.done():
@@ -289,6 +294,8 @@ class EncodeHashBatcher(_CoalescingBatcher):
                     out.append(self._encode(coder, b))
                 # re-raised at the owning waiter through _GroupItemError;
                 # other batches must proceed
+                # lint: broad-except-ok re-raised at the owning waiter
+                # through _GroupItemError; other batches must proceed
                 except Exception as err:
                     out.append(_GroupItemError(err))
             return out

@@ -207,6 +207,8 @@ class CudaBackend(ErasureBackend):
                 lo, hi = slot["span"]
                 slot["span"] = None
                 for dst, pin in zip(outs, slot["pin_out"]):
+                    # lint: launch-hygiene-ok dst is one of `outs`, this walk's own
+                    # np.empty results: the block lands in the arrays it returns
                     torch.from_numpy(dst[lo:hi]).copy_(pin[:hi - lo])
                 if on_block is not None:
                     on_block(lo, outs[0][lo:hi])

@@ -21,8 +21,14 @@ encode+hash (``NativeBackend.encode_and_hash_into``, ``nthreads=1`` a
 slice, so a ``native:N`` cap keeps meaning total host threads), and shard
 rows for SHA-256 otherwise.
 
-Not ported yet: the runtime sanitizer hook (``sanitize_enabled``), which
-comes with the linter.
+With ``$CHUNKY_BITS_TORCH_SANITIZE`` set, a pipeline installs the runtime
+concurrency sanitizer (``analysis/sanitizer.py``) at construction, and
+every job reports to its handoff checker: ``run`` records each submit and
+checks that the completion resolves on the submitting loop's thread, and
+a blocking wait issued from a loop thread (``_Job.join`` on an unfinished
+job, or ``encode_hash_sync``'s whole-batch device route) is a violation.
+The hooks reach the sanitizer only through ``sys.modules``: with the flag
+unset they cost one dict lookup and import nothing.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 import asyncio
 import os
 import queue
+import sys
 import threading
 import time
 from dataclasses import dataclass
@@ -42,6 +49,14 @@ from chunky_bits_tpu_torch.obs import tracing as obs_tracing
 
 #: worker queue poll: the bound on every blocking get/put
 _POLL_SECONDS = 0.5
+
+
+def _sanitizer():
+    """The active runtime concurrency sanitizer, or None.  Reached only
+    through ``sys.modules`` so the sanitize-off path costs one dict lookup
+    and never imports the instrumentation."""
+    mod = sys.modules.get("chunky_bits_tpu_torch.analysis.sanitizer")
+    return mod.active() if mod is not None else None
 
 
 class _Job:
@@ -97,6 +112,13 @@ class _Job:
     def join(self) -> None:
         """Wait for completion without raising (polled, so the wait stays
         interruptible at interpreter shutdown)."""
+        if not self._event.is_set():
+            # a blocking wait issued FROM a loop thread stalls every
+            # request on that loop; the sanitizer records it (a finished
+            # job, such as an inline one, never waits and is exempt)
+            san = _sanitizer()
+            if san is not None:
+                san.handoff.check_sync_wait("_Job.join()")
         while not self._event.wait(_POLL_SECONDS):
             pass
 
@@ -200,6 +222,15 @@ class HostPipeline:
         self._stages: dict[str, list] = {}  # stage -> [jobs, busy_s, bytes]
         self._idle_s = 0.0
         self._local = threading.local()
+        # self-activate the runtime sanitizer when the flag asks for it
+        # (read at first use, like host_threads); when off, nothing is
+        # imported and no per-job instrumentation exists
+        from chunky_bits_tpu_torch.cluster.tunables import sanitize_enabled
+
+        if sanitize_enabled():
+            from chunky_bits_tpu_torch.analysis.sanitizer import get_monitor
+
+            get_monitor()
         # weakly self-register with the process metrics registry
         from chunky_bits_tpu_torch.obs.metrics import get_registry
 
@@ -230,14 +261,20 @@ class HostPipeline:
     def _run_job(self, job: _Job) -> None:
         if not job._claim():
             return  # a racing claimant already ran it
+        # lint: clock-escape-ok real worker-thread stage profiling;
+        # real thread work has zero virtual width under sim
         t0 = time.perf_counter()
+        # lint: clock-escape-ok trace spans timestamp real host work
         t0_mono = time.monotonic() if job.trace is not None else 0.0
         try:
             job.result = job.fn()
         # delivered verbatim to the waiter via job.error
+        # lint: broad-except-ok delivered verbatim to the waiter via
+        # job.error (wait/join_jobs re-raise); nothing is swallowed
         except BaseException as err:
             job.error = err
         finally:
+            # lint: clock-escape-ok real worker-thread stage profiling
             dt = time.perf_counter() - t0
             with self._lock:
                 st = self._stages.setdefault(job.stage, [0, 0.0, 0])
@@ -298,14 +335,24 @@ class HostPipeline:
         ``asyncio.to_thread`` analogue with stage accounting on the
         bounded worker set.  Small known-size jobs run inline."""
         job = _Job(stage, fn, nbytes)
+        san = _sanitizer()
+        token = san.handoff.submit_token() if san is not None else None
         if 0 < nbytes <= self.INLINE_NBYTES:
             self._run_job(job)
+            if token is not None:
+                # completes on the submitting side by construction; it is
+                # recorded and checked so a sanitized run counts every job
+                san.handoff.check_resolve(token)
             return job.wait()
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
 
         def bridge(j: _Job) -> None:
             def resolve() -> None:
+                if token is not None and san is not None:
+                    # the handoff contract: this completion must be
+                    # delivered on the submitting loop's thread
+                    san.handoff.check_resolve(token)
                 if fut.cancelled():
                     return
                 if j.error is not None:
@@ -332,6 +379,9 @@ class HostPipeline:
                     await asyncio.to_thread(self._run_job, job)
         # resolved in every outcome: the runner records result-or-error in
         # a finally and fires the bridge
+        # lint: unbounded-await-ok resolved in every outcome: the runner
+        # records result-or-error in a finally and fires the bridge
+        # callback; jobs are pure host compute on daemon workers
         return await fut
 
     def _scatter(self, jobs: list[_Job]) -> None:
@@ -395,6 +445,11 @@ class HostPipeline:
         into = getattr(coder.backend, "encode_and_hash_into", None)
         if b == 0 or s == 0 or (into is None and getattr(
                 coder.backend, "encode_and_hash", None) is not None):
+            san = _sanitizer()
+            if san is not None:
+                # the whole batch runs on the calling thread: from a loop
+                # thread that blocks the loop for the device's round trip
+                san.handoff.check_sync_wait("encode_hash_sync()")
             job = _Job("encode", lambda: coder.encode_hash_batch(stacked),
                        b * d * s)
             self._run_job(job)
@@ -461,8 +516,11 @@ class HostPipeline:
         """Stop the workers; already-queued jobs are drained inline so no
         waiter is abandoned."""
         self._shutdown.set()
+        # lint: clock-escape-ok join deadline bounds REAL threads at
+        # shutdown — virtual time cannot advance a parked OS thread
         deadline = time.monotonic() + timeout
         for w in self._workers:
+            # lint: clock-escape-ok same real join deadline
             w.join(max(0.0, deadline - time.monotonic()))
         while True:
             try:

@@ -35,6 +35,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import selectors
+import sys
 import threading
 from typing import Any, Callable, Optional
 
@@ -136,6 +137,14 @@ class VirtualTimeLoop(asyncio.SelectorEventLoop):
         return fut
 
 
+def _sanitizer():
+    """The active runtime sanitizer, without importing it: the module is
+    only present when ``CHUNKY_BITS_TORCH_SANITIZE`` loaded it (the same
+    ``sys.modules`` door parallel/host_pipeline.py uses)."""
+    mod = sys.modules.get("chunky_bits_tpu_torch.analysis.sanitizer")
+    return mod.active() if mod is not None else None
+
+
 def _cancel_all_tasks(loop: asyncio.AbstractEventLoop) -> None:
     """``asyncio.runners``' teardown: cancel every remaining task and run
     the loop until they finish, so nothing outlives the run."""
@@ -171,6 +180,11 @@ def run(main, *, debug: Optional[bool] = None):
         raise RuntimeError(
             "sim.run() cannot be called from a running event loop")
     loop = VirtualTimeLoop()
+    san = _sanitizer()
+    if san is not None:
+        # loops built by the sanitizer's policy are instrumented already;
+        # this one is constructed directly, so opt in explicitly
+        san.instrument_loop(loop)
     previous_clock = clock_mod.install(clock_mod.VirtualClock(loop))
     try:
         asyncio.set_event_loop(loop)
