@@ -80,13 +80,13 @@ drives the main paths:
   fused read+hash, and the planner localizes each flipped chunk;
 * the ``host_codec`` group, the native host codec (``csrc/gf256.cpp``,
   built by g++ beside the kernels): its build, tiers and the CPU's flags;
-  config 2's 10 GiB ingest on ``cuda`` with the native SHA-NI row hasher
-  on the shared host pipeline, its references equal to ``native`` and
-  ``numpy`` runs on a 16-part cut; cp, cat and verify through the CLI on
-  a ``backend: native:4`` YAML (the reference equal to the ``cuda``
-  YAML's); and BASELINE.md config 12's grid on ``native``, the table
-  kernels and the scheduled-XOR engine each byte-identical to numpy, at
-  host GiB/s of the card box's CPU;
+  config 2's ingest (cut to ~1 GiB) on ``cuda`` with the native SHA-NI
+  row hasher on the shared host pipeline, its references equal to
+  ``native`` and ``numpy`` runs on a 16-part cut; cp, cat and verify
+  through the CLI on a ``backend: native:4`` YAML (the reference equal to
+  the ``cuda`` YAML's); and BASELINE.md config 12's grid on ``native``,
+  the table kernels and the scheduled-XOR engine each byte-identical to
+  numpy, at host GiB/s of the card box's CPU;
 * the ``serving_opt_in`` group, the serving plane's opt-in parts and the
   multi-host bootstrap: BASELINE.md config 19's QoS A/B through a
   gateway on ``cuda`` (d=3 p=2, 64 KiB chunks, ``max_concurrent_gets``
@@ -127,7 +127,22 @@ drives the main paths:
   every step must record a handoff submit, and whose scenario trace must
   equal the sanitize-off one byte for byte; then ``python -m
   chunky_bits_tpu_torch.analysis --json --graph-stats`` (rc 0, 0 new
-  findings) and each rule family alone, timed.
+  findings) and each rule family alone, timed;
+* the ``baseline_ab`` group, the JAX package's A/Bs of BASELINE.md
+  configs 4, 6, 7, 8, 10, 18 and 17 (``bench.py``) through the port's
+  entry points on ``cuda``: config 4's 1,024 objects of [1, 8, 512 KiB],
+  16 in flight through one ``EncodeHashBatcher``, host SHA then the SHA
+  kernel (parity equal to numpy, digests to hashlib); config 6's 64 MiB
+  object read 5 times with the chunk cache off and on (the cached reads
+  decode nothing); config 7's 1 GiB PUT through ``make_app`` at
+  ``host_threads`` 1 and 2, best of 2, every object read back; config
+  8's hedged-read A/B on five chunk nodes served from this process, node
+  0 slowed 100 ms (no hedge off, the budget held on, the on leg's p99
+  below the off leg's); config 10's 150 small objects through ``path``
+  and ``slab:`` clusters with equal GC candidate sets; config 18's 10,000
+  references through the path store and the meta-log (equal listings and
+  liveness sets); config 17's ``cuda`` against ``mesh`` at depth 2 and 0
+  on 8 logical devices (the window overlaps at depth 2 only).
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -136,7 +151,8 @@ block one reduce-and-pack per 'dp' group).  Then it times each kernel
 beside its plain version and its bound (K1 also at the one-part shapes of
 the read dispatches, at config 5's stripe, at the repair planner's
 commonest shapes and at the d=3 p=2 decode shapes of config 19's and the
-simulator's reads); the SHA bound
+simulator's reads, and at configs 4's and 8's dispatches; the SHA kernel
+also at config 4's rows); the SHA bound
 counts the instructions of one compression, checked against the compiled
 loop (``cuobjdump -sass``).
 
@@ -842,6 +858,14 @@ def recording_batchers():
     return RecordingEncode, RecordingReconstruct
 
 
+def walk_blocks(backend, limit: str, b: int, part_bytes: int) -> int:
+    """Blocks of the ``cuda`` walk for ``b`` parts of ``part_bytes``
+    under the backend's ``limit`` attribute; one for a backend without
+    one (the ``torch`` backend of the CPU tests)."""
+    cap = getattr(backend, limit, None)
+    return -(-b // max(1, cap // part_bytes)) if cap else 1
+
+
 def expected_gf(backend, shapes, packed: bool) -> dict:
     """Launches of each GF kernel that dispatches of ``shapes`` call for:
     one per block of the walk, on the packed kernel where ``packed`` is on
@@ -850,7 +874,7 @@ def expected_gf(backend, shapes, packed: bool) -> dict:
 
     want = {name: 0 for name in KERNELS}
     for b, r, k, s in shapes:
-        blocks = -(-b // max(1, backend.max_block_bytes // (k * s)))
+        blocks = walk_blocks(backend, "max_block_bytes", b, k * s)
         name = ("gf_apply_packed"
                 if packed and gf_kernel.packed_geometry_ok(r, k, s)
                 else "gf_apply")
@@ -1126,10 +1150,10 @@ class ApplyRecorder:
         self.shapes: list[tuple] = []
         real = backend.apply_matrix
 
-        def apply_matrix(mat, shards, on_block=None):
+        def apply_matrix(mat, shards, *args, **kwargs):
             b, k, s = shards.shape
             self.shapes.append((b, mat.shape[0], k, s))
-            return real(mat, shards, on_block=on_block)
+            return real(mat, shards, *args, **kwargs)
 
         backend.apply_matrix = apply_matrix
 
@@ -1618,10 +1642,18 @@ class ChunkNode:
     """A storage node for ``http://`` destinations: GET (with a single
     Range) and HEAD through aiohttp's FileResponse, PUT published by
     rename, DELETE, over a directory.  The counterpart of the test suite's
-    node server, served from this process."""
+    node server, served from this process.  ``gets`` counts GET and HEAD
+    requests; with ``delay_s`` above 0 each of them first stalls
+    ``delay_s`` x uniform(0.75, 1.25) seconds, drawn from a generator
+    seeded with ``seed`` (config 8's slow replica)."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, delay_s: float = 0.0, seed: int = 0):
+        import random
+
         self.root = root
+        self.delay_s = delay_s
+        self.rng = random.Random(seed)
+        self.gets = 0
 
     def file(self, url_path: str) -> str:
         rel = url_path.lstrip("/")
@@ -1632,6 +1664,10 @@ class ChunkNode:
         from aiohttp import web
 
         async def get(request):
+            self.gets += 1
+            if self.delay_s > 0:
+                await asyncio.sleep(self.delay_s
+                                    * self.rng.uniform(0.75, 1.25))
             path = self.file(request.path)
             if not os.path.isfile(path):
                 return web.Response(status=404)
@@ -2464,6 +2500,10 @@ def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
 #: the host_codec group: a cut of config 2's stream for the native and
 #: numpy references, and the CLI object of the ``native:4`` YAML
 HC_CUT_PARTS = 16
+#: the native row hasher's config-2 ingest, cut from 10 GiB to ~1 GiB: the
+#: object phases ingest 10 GiB twice already, and the run's time limit
+#: needs the seconds
+HC_INGEST_PARTS = DISK_PARTS
 HC_CLI_PARTS = 25
 #: BASELINE.md config 12's grid (bench.py config 12), each cell's working
 #: set cut to 16 MiB (bench.py: 64 MiB), best of 3
@@ -2494,8 +2534,8 @@ def phase_host_codec(blob: bytes, path, counts, be) -> dict:
     """The host_codec group: the port's native host codec (``csrc/
     gf256.cpp``, built by g++) on the card's box.  (1) the build, its
     tiers and the CPU's flags; ``row_hasher()`` must be the native engine.
-    (2) BASELINE.md config 2's 10 GiB void ingest on ``cuda`` (K1 on the
-    card, SHA-NI on the host, through the shared host pipeline), its
+    (2) BASELINE.md config 2's void ingest, cut to ~1 GiB, on ``cuda`` (K1
+    on the card, SHA-NI on the host, through the shared host pipeline), its
     references equal to a ``native`` and a ``numpy`` run on a cut of the
     same stream.  (3) cp, cat and verify through the CLI on a config-2
     YAML with ``backend: native:4``, the reference equal to the one the
@@ -2542,7 +2582,7 @@ def phase_host_codec(blob: bytes, path, counts, be) -> dict:
     busy0 = hash_busy()
     t0 = time.perf_counter()
     full, batcher = path("hc_ingest", phase_object_ingest, blob, pipe,
-                         "cuda, native row hasher", None, OBJECT_PARTS)
+                         "cuda, native row hasher", None, HC_INGEST_PARTS)
     dt = time.perf_counter() - t0
     expected["hc_ingest"] = expected_gf(be, batcher.shapes, False)
     busy1 = hash_busy()
@@ -3814,12 +3854,911 @@ def phase_lint(here: str) -> None:
         log(f"  lint {family}xx alone: {seconds:.2f} s, 0 new")
 
 
+# ---- the baseline_ab group: the JAX package's A/Bs on the card ----
+
+#: config 4 (bench.py:1574-1656): 4 MiB objects as [1, 8, 512 KiB], d=8
+#: p=3, 16 in flight through one EncodeHashBatcher; bench.py runs 96
+AB4_GEO = Geometry(8, 3, 512 << 10, ())
+AB4_OBJECTS = 1024
+AB4_INFLIGHT = 16
+#: configs 6 and 7: the reference's default geometry, d=3 p=2, 1 MiB
+AB_D3P2 = Geometry(3, 2, 1 << 20, ())
+AB6_BYTES = 64 << 20      # config 6 (bench.py:707-804): one object,
+AB6_READS = 5             # 5 timed reads a leg
+AB7_BYTES = 1 << 30       # config 7 (bench.py:805-927): a 1 GiB body,
+AB7_TRIALS = 2            # best of 2 (bench.py: 3; cut for the group's
+                          # time), at host_threads 1 and 2
+AB7_THREADS = (1, 2)
+#: config 8 (bench.py:928-1173): 4 parts of 32 KiB chunks on five nodes,
+#: node 0 slow, 40 passes a leg, hedge floor 10 ms on the ON leg
+AB8_GEO = Geometry(3, 2, 32 << 10, ())
+AB8_PARTS = 4
+AB8_READS = 40
+AB8_DELAY_S = 0.1
+AB8_HEDGE_MS = 10.0
+#: config 10 (bench.py:1658-1819): 150 objects of 16 KiB, 4 KiB chunks
+AB10_GEO = Geometry(3, 2, 4 << 10, ())
+AB10_OBJECTS = 150
+AB10_OBJ = 16 << 10
+#: config 18 (bench.py:1820-2135): 10,000 refs in 32 x 16 directories
+AB18_OBJECTS = 10_000
+#: config 17 (bench.py:3334-3542): d=10 p=4, 256 KiB, 16 parts x 4
+#: batches, best of 3 iterations, over 8 logical devices
+AB17_GEO = Geometry(10, 4, 256 << 10, ())
+AB17_PARTS = 16
+AB17_BATCHES = 4
+AB17_ITERS = 3
+
+
+def ab_objects(blob: bytes, n: int, geo: Geometry) -> list[np.ndarray]:
+    """``n`` distinct windows of ``geo.d * geo.chunk`` bytes of ``blob``
+    at staggered offsets, each a ``[1, d, chunk]`` view (no copy)."""
+    buf = np.frombuffer(blob, dtype=np.uint8)
+    size = geo.d * geo.chunk
+    stride = (len(buf) - size) // max(1, n - 1)
+    assert stride > 0, "the blob is too short for distinct windows"
+    return [buf[i * stride:i * stride + size].reshape(1, geo.d, geo.chunk)
+            for i in range(n)]
+
+
+def expected_fused(backend, shapes) -> dict:
+    """Launches the device-SHA route of ``encode_and_hash`` calls for on
+    dispatches of ``shapes``: a K1 and a SHA kernel per block of the fused
+    walk."""
+    want = {name: 0 for name in KERNELS}
+    for b, r, k, s in shapes:
+        blocks = walk_blocks(backend, "max_fused_block_bytes", b,
+                             (k + r) * s)
+        want["gf_apply"] += blocks
+        want["sha256_rows"] += blocks
+    return want
+
+
+def ref_layout(ref) -> dict:
+    """A file reference without its chunk locations: what two clusters
+    over different directories must agree on."""
+    obj = ref.to_obj()
+    for part in obj["parts"]:
+        for chunk in part["data"] + part.get("parity", []):
+            chunk.pop("locations", None)
+    return obj
+
+
+def ab_cluster(root: str, geo: Geometry, backend: str, **kwargs):
+    """A ``Cluster`` over ``cluster_yaml(root, geo, backend, **kwargs)``."""
+    import yaml
+
+    from chunky_bits_tpu_torch.cluster import Cluster
+
+    with open(cluster_yaml(root, geo, backend, **kwargs)) as f:
+        return Cluster.from_obj(yaml.safe_load(f))
+
+
+class LoopSteps:
+    """One event loop that lives across counted steps: ``path(name,
+    steps.run, coro)`` runs ``coro`` on it, so per-loop state (the
+    cluster's batchers and chunk cache, an aiohttp session) carries from
+    one step to the next."""
+
+    def __init__(self):
+        self.loop = asyncio.new_event_loop()
+
+    def run(self, coro):
+        return self.loop.run_until_complete(coro)
+
+    def close(self) -> None:
+        self.loop.run_until_complete(self.loop.shutdown_asyncgens())
+        self.loop.close()
+
+
+def ab_config4(blob: bytes, path, be, objects: int = AB4_OBJECTS,
+               geo: Geometry = AB4_GEO, inflight: int = AB4_INFLIGHT,
+               oracle=None) -> dict:
+    """BASELINE config 4's encode+hash core: ``objects`` small objects,
+    ``inflight`` at a time, through one ``EncodeHashBatcher`` on ``be``,
+    with host SHA and then the SHA kernel (``be.device_sha``).  Every
+    object's parity equals the ``oracle`` backend's (the port's numpy
+    backend when None) and its d+p digests hashlib's on both legs; the
+    merging backend makes a group one dispatch."""
+    from chunky_bits_tpu_torch.ops import matrix
+    from chunky_bits_tpu_torch.ops.backend import NumpyBackend
+
+    encode_cls, _ = recording_batchers()
+    objs = ab_objects(blob, objects, geo)
+    nbytes = (objects - 1) * geo.d * geo.chunk
+
+    def leg(device_sha: bool):
+        async def drive():
+            batcher = encode_cls(backend=be.name)
+            sem = asyncio.Semaphore(inflight)
+
+            async def one(obj):
+                async with sem:
+                    return await batcher.encode_hash(geo.d, geo.p, obj)
+
+            outs = [await one(objs[0])]  # the warm-up, as bench.py's
+            t0 = time.perf_counter()
+            outs += await asyncio.gather(*(one(o) for o in objs[1:]))
+            dt = time.perf_counter() - t0
+            await batcher.aclose()
+            return outs, batcher, dt
+
+        had = "device_sha" in vars(be)
+        saved = getattr(be, "device_sha", None)
+        be.device_sha = device_sha
+        try:
+            return asyncio.run(drive())
+        finally:
+            if had:
+                be.device_sha = saved
+            else:
+                del be.device_sha
+
+    expected, legs = {}, {}
+    for device_sha in (False, True):
+        name = "ab4_" + ("device_sha" if device_sha else "host_sha")
+        outs, batcher, dt = path(name, leg, device_sha)
+        expected[name] = (expected_fused(be, batcher.shapes) if device_sha
+                          else expected_gf(be, batcher.shapes, False))
+        assert expected[name]["gf_apply"] == batcher.dispatches, (
+            expected[name], batcher.dispatches)
+        legs[name] = {"outs": outs, "gib_s": gib_s(nbytes, dt),
+                      "dispatches": batcher.dispatches,
+                      "groups": batcher.groups,
+                      "shapes": list(batcher.shapes),
+                      "per_group": (objects - 1) / max(batcher.groups - 1,
+                                                       1)}
+    host, dev = legs["ab4_host_sha"]["outs"], legs["ab4_device_sha"]["outs"]
+    rows_of = matrix.build_encode_matrix(geo.d, geo.p)[geo.d:]
+    oracle = oracle or NumpyBackend()
+
+    def check(i: int) -> None:
+        parity = oracle.apply_matrix(rows_of, objs[i])
+        assert np.array_equal(host[i][0], parity), f"object {i}: parity"
+        assert np.array_equal(dev[i][0], parity), f"object {i}: parity"
+        rows = np.concatenate([objs[i], parity], axis=1)[0]
+        want = b"".join(hashlib.sha256(r).digest() for r in rows)
+        assert host[i][1].tobytes() == want, f"object {i}: digests"
+        assert dev[i][1].tobytes() == want, f"object {i}: digests"
+
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(check, range(objects)))
+    ratio = legs["ab4_device_sha"]["gib_s"] / legs["ab4_host_sha"]["gib_s"]
+    for name, leg_ in legs.items():
+        log(f"  config 4 {name}: {objects} objects of [1, {geo.d}, "
+            f"{geo.chunk >> 10} KiB], {inflight} in flight: "
+            f"{leg_['gib_s']:.3f} GiB/s; {leg_['per_group']:.1f} objects a "
+            f"group, {leg_['dispatches']} dispatches, launches "
+            f"{expected[name]}")
+    log(f"  config 4: parity of all {objects} objects equal to numpy and "
+        f"their {objects * (geo.d + geo.p)} digests to hashlib on both "
+        f"legs; device SHA / host SHA {ratio:.3f}")
+    return {"expected": expected, "legs": legs, "ratio": ratio}
+
+
+def ab_config6(root: str, blob: bytes, path, be, rec,
+               nbytes: int = AB6_BYTES, reads: int = AB6_READS,
+               geo: Geometry = AB_D3P2) -> dict:
+    """BASELINE config 6, the hot-read cache A/B: one object on five
+    ``path`` destinations read through ``Cluster.file_read_builder``,
+    ``reads`` timed reads with ``cache_bytes`` 0 and then on.  Off: no
+    cache exists.  On: after the first read every data chunk hits (a
+    rebuilt one was inserted too), so the timed reads fetch and decode
+    nothing."""
+    from chunky_bits_tpu_torch.utils import aio
+
+    payload = source_slice(blob, 0, nbytes)
+    expected, out = {}, {"refs": []}
+    for leg, cache_bytes in (("off", 0), ("on", max(4 * nbytes, 64 << 20))):
+        top = os.path.join(root, f"ab6_{leg}")
+        cluster = ab_cluster(top, geo, be.name, cache_bytes=cache_bytes)
+        steps = LoopSteps()
+        tag = f"ab6_{leg}"
+
+        async def write():
+            return await cluster.write_file(
+                "obj", aio.BytesReader(payload), cluster.get_profile(None))
+
+        async def warm():
+            ref = await cluster.get_file_ref("obj")
+            got = await cluster.file_read_builder(ref).read_all()
+            assert got == payload, f"config 6 {leg}: first read differs"
+            return cluster._chunk_cache(), cluster._reconstruct_batcher()
+
+        async def timed():
+            best, bodies = float("inf"), []
+            for _ in range(reads):
+                pieces = []
+                t0 = time.perf_counter()
+                ref = await cluster.get_file_ref("obj")
+                async for chunk in cluster.file_read_builder(ref).stream():
+                    pieces.append(chunk)
+                best = min(best, time.perf_counter() - t0)
+                bodies.append(pieces)
+            for pieces in bodies:
+                assert b"".join(pieces) == payload, \
+                    f"config 6 {leg}: a timed read differs"
+            return best
+
+        try:
+            rec.expected()
+            ref = path(tag + "_write", steps.run, write())
+            expected[tag + "_write"] = rec.expected()
+            cache, batcher = path(tag + "_warm", steps.run, warm())
+            expected[tag + "_warm"] = rec.expected()
+            assert expected[tag + "_warm"]["gf_apply"] == batcher.dispatches
+            before = (cache.stats() if cache is not None else None,
+                      batcher.dispatches)
+            best = path(tag + "_reads", steps.run, timed())
+            expected[tag + "_reads"] = rec.expected()
+            dispatches = batcher.dispatches - before[1]
+            assert expected[tag + "_reads"]["gf_apply"] == dispatches
+            steps.run(cluster.tunables.location_context().aclose())
+        finally:
+            steps.close()
+        if cache is None:
+            assert cache_bytes == 0
+            hits = misses = 0
+        else:
+            # every data chunk was cached by the first read (fetched and
+            # verified, or rebuilt and inserted), and so was each parity
+            # chunk it fetched: a timed read looks each of them up once
+            cached = [chunk.cache_key() for part in ref.parts
+                      for chunk in part.data + part.parity
+                      if cache.contains(chunk.cache_key())]
+            assert all(cache.contains(chunk.cache_key())
+                       for part in ref.parts for chunk in part.data)
+            after = cache.stats()
+            hits = after.hits - before[0].hits
+            misses = after.misses - before[0].misses
+            assert (hits, misses) == (reads * len(cached), 0), (hits, misses)
+            assert dispatches == 0, "a cached read decoded"
+        out[leg] = {"gib_s": gib_s(nbytes, best), "hits": hits,
+                    "misses": misses, "warm_dispatches": before[1],
+                    "read_dispatches": dispatches}
+        out["refs"].append(ref_layout(ref))
+        log(f"  config 6 cache {leg}: {reads} reads of {nbytes >> 20} MiB, "
+            f"best {gib_s(nbytes, best):.3f} GiB/s; cache hits {hits}, "
+            f"misses {misses} in the timed reads; decode dispatches: "
+            f"first read {before[1]}, timed reads {dispatches}")
+    assert out["refs"][0] == out["refs"][1], "config 6: references differ"
+    out["speedup"] = out["on"]["gib_s"] / out["off"]["gib_s"]
+    log(f"  config 6: every read equal to the source; cached / uncached "
+        f"{out['speedup']:.2f}x")
+    return {"expected": expected, **out}
+
+
+def ab_config7(root: str, blob: bytes, path, be, rec,
+               nbytes: int = AB7_BYTES, trials: int = AB7_TRIALS,
+               threads=AB7_THREADS, geo: Geometry = AB_D3P2) -> dict:
+    """BASELINE config 7, gateway PUT ingest: a body of ``nbytes``
+    streamed through ``make_app`` on an aiohttp test server, best of
+    ``trials``, once at each ``tunables.host_threads`` of ``threads``;
+    the clients share the server's event loop, as in bench.py.  Each
+    stored object reads back equal to the body over GET, and the file
+    references of every trial and leg are equal."""
+    from aiohttp import ClientSession, ClientTimeout
+    from aiohttp.test_utils import TestServer
+
+    from chunky_bits_tpu_torch.gateway.http import make_app
+
+    piece = 8 << 20
+    want = hashlib.sha256()
+    for lo in range(0, nbytes, piece):
+        want.update(source_slice(blob, lo, min(piece, nbytes - lo)))
+    want = want.digest()
+
+    async def body():
+        for lo in range(0, nbytes, piece):
+            yield source_slice(blob, lo, min(piece, nbytes - lo))
+
+    expected, out = {}, {"refs": []}
+    for n in threads:
+        top = os.path.join(root, f"ab7_host{n}")
+        cluster = ab_cluster(top, geo, be.name, extra={"host_threads": n})
+        steps = LoopSteps()
+        tag = f"ab7_host{n}"
+
+        async def start():
+            server = TestServer(make_app(cluster))
+            await server.start_server()
+            session = ClientSession(timeout=ClientTimeout(total=3600))
+            # warm: the thread pools and the first dispatch
+            resp = await session.put(server.make_url("/warm"),
+                                     data=source_slice(blob, 0, 1 << 20))
+            assert resp.status == 200, resp.status
+            resp.release()
+            return server, session
+
+        async def puts():
+            best = float("inf")
+            for t in range(trials):
+                t0 = time.perf_counter()
+                resp = await session.put(server.make_url(f"/obj{t}"),
+                                         data=body())
+                dt = time.perf_counter() - t0
+                assert resp.status == 200, resp.status
+                resp.release()
+                best = min(best, dt)
+            return best
+
+        async def gets():
+            for t in range(trials):
+                resp = await session.get(server.make_url(f"/obj{t}"))
+                assert resp.status == 200, resp.status
+                got, digest = 0, hashlib.sha256()
+                async for chunk in resp.content.iter_chunked(piece):
+                    digest.update(chunk)
+                    got += len(chunk)
+                resp.release()
+                assert (got, digest.digest()) == (nbytes, want), \
+                    f"config 7 host_threads={n}: GET obj{t} differs"
+            return [ref_layout(await cluster.get_file_ref(f"obj{t}"))
+                    for t in range(trials)]
+
+        try:
+            server, session = steps.run(start())
+            try:
+                rec.expected()
+                best = path(tag + "_put", steps.run, puts())
+                expected[tag + "_put"] = rec.expected()
+                refs = path(tag + "_get", steps.run, gets())
+                expected[tag + "_get"] = rec.expected()
+            finally:
+                steps.run(session.close())
+                steps.run(server.close())
+                steps.run(cluster.tunables.location_context().aclose())
+                cluster.host_pipeline().close()
+        finally:
+            steps.close()
+        assert all(r == refs[0] for r in refs), "config 7: trials differ"
+        out["refs"].append(refs[0])
+        out[n] = gib_s(nbytes, best)
+        log(f"  config 7 host_threads={n}: PUT of {nbytes / 2**30:.3f} GiB, "
+            f"best of {trials}: {out[n]:.3f} GiB/s (the clients share the "
+            f"server's interpreter); K1 launches: PUTs "
+            f"{expected[tag + '_put']['gf_apply']}, GETs "
+            f"{expected[tag + '_get']['gf_apply']}")
+    assert all(r == out["refs"][0] for r in out["refs"]), \
+        "config 7: references differ between legs"
+    log(f"  config 7: every GET equal to the body; references equal "
+        f"across {len(threads)} legs x {trials} trials")
+    return {"expected": expected, **out}
+
+
+def ab_config8(root: str, blob: bytes, path, be, rec,
+               parts: int = AB8_PARTS, geo: Geometry = AB8_GEO,
+               reads: int = AB8_READS, delay_s: float = AB8_DELAY_S,
+               hedge_ms: float = AB8_HEDGE_MS) -> dict:
+    """BASELINE config 8, the hedged-read tail A/B: an object of
+    ``parts`` parts on five ``ChunkNode`` servers, every chunk with a
+    second replica on a fast node, node 0's GETs delayed ``delay_s``
+    +-25%; ``reads`` passes over the parts with ``hedge_ms`` 0 and then
+    ``hedge_ms``.  Every read equals the source, the off leg hedges
+    never, the on leg within the scoreboard's budget, and the on leg's
+    p99 is below the off leg's."""
+    from urllib.parse import urlparse
+
+    from chunky_bits_tpu_torch.cluster import Cluster
+    from chunky_bits_tpu_torch.file.location import Location
+    from chunky_bits_tpu_torch.utils import aio
+
+    part_bytes = geo.d * geo.chunk
+    payload = source_slice(blob, 0, parts * part_bytes)
+    nodes = [ChunkNode(os.path.join(root, f"ab8_n{i}"), seed=SEED + i)
+             for i in range(geo.d + geo.p)]
+    servers = []
+    meta = os.path.join(root, "ab8_meta")
+    os.makedirs(meta)
+    for node in nodes:
+        os.makedirs(node.root)
+    expected, out = {}, {}
+    try:
+        for i, node in enumerate(nodes):
+            servers.append(ServerThread(node.serve, f"config-8 node {i}"))
+        urls = [f"http://127.0.0.1:{s.port}/" for s in servers]
+
+        def make(hedge: float):
+            return Cluster.from_obj({
+                "destinations": [{"location": u} for u in urls],
+                "metadata": {"type": "path", "format": "yaml",
+                             "path": meta},
+                "profiles": {"default": {
+                    "data": geo.d, "parity": geo.p,
+                    "chunk_size": geo.chunk.bit_length() - 1}},
+                "tunables": {"backend": be.name, "hedge_ms": hedge}})
+
+        async def write():
+            cluster = make(0)
+            await cluster.write_file("obj", aio.BytesReader(payload),
+                                     cluster.get_profile(None))
+            ref = await cluster.get_file_ref("obj")
+            await cluster.tunables.location_context().aclose()
+            return ref
+
+        rec.expected()
+        ref = path("ab8_write", asyncio.run, write())
+        expected["ab8_write"] = rec.expected()
+        # a second replica of every chunk on a fast node (never node 0:
+        # one slow replica per chunk is the scenario)
+        fast = 1
+        for part in ref.parts:
+            for chunk in part.data + part.parity:
+                url = str(chunk.locations[0])
+                owner = next(i for i, u in enumerate(urls)
+                             if url.startswith(u))
+                while fast in (0, owner):
+                    fast = (fast + 1) % len(nodes)
+                key = urlparse(url).path
+                with open(nodes[owner].file(key), "rb") as f:
+                    raw = f.read()
+                with open(nodes[fast].file(key), "wb") as f:
+                    f.write(raw)
+                chunk.locations.append(Location.http(
+                    urls[fast] + key.lstrip("/")))
+                fast = (fast + 1) % len(nodes)
+        nodes[0].delay_s = delay_s
+
+        for hedge in (0.0, hedge_ms):
+            cluster = make(hedge)
+            cx = cluster.tunables.location_context()
+            tag = f"ab8_hedge{hedge:g}"
+            steps = LoopSteps()
+
+            async def warm():
+                for part in ref.parts:
+                    await part.read(cx, backend=be.name)
+
+            async def timed():
+                for node in nodes:
+                    node.gets = 0
+                lat = []
+                for _ in range(reads):
+                    for i, part in enumerate(ref.parts):
+                        t0 = time.perf_counter()
+                        bufs = await part.read_buffers(cx, backend=be.name)
+                        lat.append(time.perf_counter() - t0)
+                        got = b"".join(bytes(b) for b in bufs)
+                        assert got == payload[i * part_bytes:
+                                              (i + 1) * part_bytes], \
+                            f"config 8 {tag}: part {i} differs"
+                requests = sum(node.gets for node in nodes)
+                got = await cluster.file_read_builder(ref).read_all()
+                assert got == payload, f"config 8 {tag}: the object differs"
+                return lat, requests
+
+            try:
+                steps.run(warm())
+                rec.expected()
+                warm_fired = cluster.health_scoreboard().hedges_fired
+                lat, requests = path(tag, steps.run, timed())
+                expected[tag] = rec.expected()
+                steps.run(cx.aclose())
+            finally:
+                steps.close()
+            board = cluster.health_scoreboard()
+            st = board.stats()
+            budget = board.hedge_ratio * st.primaries + board.hedge_burst
+            arr = np.array(lat)
+            out[tag] = {
+                "p50_ms": float(np.percentile(arr, 50)) * 1e3,
+                "p99_ms": float(np.percentile(arr, 99)) * 1e3,
+                "gib_s": gib_s(reads * len(payload), float(arr.sum())),
+                "requests": requests, "hedges_fired": st.hedges_fired,
+                "timed_hedges": st.hedges_fired - warm_fired,
+                "hedges_won": st.hedges_won,
+                "hedges_cancelled": st.hedges_cancelled,
+                "primaries": st.primaries, "budget": budget}
+            if hedge == 0:
+                assert st.hedges_fired == 0, "config 8: the off leg hedged"
+            else:
+                assert st.hedges_fired <= budget, (st.hedges_fired, budget)
+            r = out[tag]
+            log(f"  config 8 hedge_ms={hedge:g}: {reads} passes of {parts} "
+                f"parts, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, "
+                f"{r['gib_s']:.4f} GiB/s, {requests} GETs, hedges fired/won/"
+                f"cancelled {st.hedges_fired}/{st.hedges_won}/"
+                f"{st.hedges_cancelled} ({r['timed_hedges']} of them in the "
+                f"timed passes; budget {budget:.2f} of "
+                f"{st.primaries} primaries), K1 launches "
+                f"{expected[tag]['gf_apply']}")
+    finally:
+        for server in servers:
+            server.stop()
+    off, on = out["ab8_hedge0"], out[f"ab8_hedge{hedge_ms:g}"]
+    out["off"], out["on"] = off, on
+    out["collapse"] = off["p99_ms"] / on["p99_ms"]
+    out["amplification"] = on["requests"] / off["requests"] - 1.0
+    assert on["p99_ms"] < off["p99_ms"], (on["p99_ms"], off["p99_ms"])
+    log(f"  config 8: every read equal to the source; p99 collapse "
+        f"{out['collapse']:.2f}x, amplification "
+        f"{out['amplification'] * 100:.1f}%")
+    return {"expected": expected, **out}
+
+
+def gc_candidates(root: str, dirs: int, slab: bool) -> set:
+    """The GC candidate enumeration of bench.py's config 10 over the
+    destinations ``root``/d0..: one index scan a slab store, or every
+    chunk file listed and stat'ed (find-unused-hashes' grace-age check on
+    ``path`` destinations).  Returns the chunk names."""
+    from chunky_bits_tpu_torch.file import slab as slab_mod
+
+    names = set()
+    for i in range(dirs):
+        top = os.path.join(root, f"d{i}")
+        if slab:
+            names.update(slab_mod.get_store(top).live_names())
+            continue
+        for dirpath, _dirs, files in os.walk(top):
+            for name in files:
+                os.stat(os.path.join(dirpath, name))
+                names.add(name)
+    return names
+
+
+def ab_config10(root: str, blob: bytes, path, be, rec,
+                objects: int = AB10_OBJECTS, obj_bytes: int = AB10_OBJ,
+                geo: Geometry = AB10_GEO) -> dict:
+    """BASELINE config 10, slab store vs file-per-chunk: ``objects``
+    objects of ``obj_bytes`` written and read through a ``path`` cluster
+    and a ``slab:`` one, then each layout's GC candidate enumeration
+    timed.  Reads equal the sources in both; the candidate sets are
+    equal."""
+    from chunky_bits_tpu_torch.utils import aio
+
+    payloads = [source_slice(blob, i * obj_bytes, obj_bytes)
+                for i in range(objects)]
+    expected, out = {}, {}
+    for layout, slabs in (("files", 0), ("slab", geo.d + geo.p)):
+        top = os.path.join(root, f"ab10_{layout}")
+        cluster = ab_cluster(top, geo, be.name, slabs=slabs)
+        profile = cluster.get_profile(None)
+        steps = LoopSteps()
+        tag = f"ab10_{layout}"
+
+        async def puts():
+            t0 = time.perf_counter()
+            for i, payload in enumerate(payloads):
+                await cluster.write_file(f"o{i:04d}",
+                                         aio.BytesReader(payload), profile)
+            return time.perf_counter() - t0
+
+        async def gets():
+            bodies = []
+            t0 = time.perf_counter()
+            for i in range(objects):
+                ref = await cluster.get_file_ref(f"o{i:04d}")
+                bodies.append(
+                    await cluster.file_read_builder(ref).read_all())
+            dt = time.perf_counter() - t0
+            for i, body in enumerate(bodies):
+                assert body == payloads[i], f"config 10 {layout}: o{i:04d}"
+            return dt
+
+        try:
+            rec.expected()
+            put_s = path(tag + "_put", steps.run, puts())
+            expected[tag + "_put"] = rec.expected()
+            get_s = path(tag + "_get", steps.run, gets())
+            expected[tag + "_get"] = rec.expected()
+            steps.run(cluster.tunables.location_context().aclose())
+        finally:
+            steps.close()
+        t0 = time.perf_counter()
+        names = gc_candidates(top, geo.d + geo.p, bool(slabs))
+        gc_ms = (time.perf_counter() - t0) * 1e3
+        out[layout] = {"put_ops": objects / put_s,
+                       "get_ops": objects / get_s, "gc_ms": gc_ms,
+                       "candidates": names}
+        log(f"  config 10 {layout}: PUT {objects / put_s:.1f} objects/s, GET "
+            f"{objects / get_s:.1f} objects/s, GC enumeration {gc_ms:.2f} ms "
+            f"({len(names)} chunks); K1 launches PUT "
+            f"{expected[tag + '_put']['gf_apply']}, GET "
+            f"{expected[tag + '_get']['gf_apply']}")
+    assert out["files"]["candidates"] == out["slab"]["candidates"], \
+        "config 10: the candidate sets differ"
+    out["gc_speedup"] = out["files"]["gc_ms"] / out["slab"]["gc_ms"]
+    out["get_ab"] = out["slab"]["get_ops"] / out["files"]["get_ops"]
+    log(f"  config 10: reads byte-identical in both layouts, candidate "
+        f"sets equal; GC walk files / slab {out['gc_speedup']:.2f}x, GET "
+        f"slab / files {out['get_ab']:.2f}x")
+    return {"expected": expected, **out}
+
+
+def ab18_name(i: int) -> str:
+    return f"ns{i % 32:02d}/g{(i // 32) % 16:02d}/o{i:06d}"
+
+
+def ab18_ref(i: int) -> dict:
+    """bench.py's config-18 reference: one d=3 p=2 part in a real write's
+    ``to_obj`` layout, its hashes derived from ``i``."""
+
+    def chunk(j: int) -> dict:
+        digest = hashlib.sha256(f"{i}:{j}".encode()).hexdigest()
+        return {"sha256": digest, "locations": [f"d{j}/sha256-{digest}"]}
+
+    return {"length": 12_288,
+            "parts": [{"chunksize": 4096,
+                       "data": [chunk(j) for j in range(3)],
+                       "parity": [chunk(j) for j in (3, 4)]}]}
+
+
+def ab_config18(root: str, objects: int = AB18_OBJECTS,
+                stores=None) -> dict:
+    """BASELINE config 18, the meta-log's indexed namespace against a
+    store of a file per reference: ``objects`` references in 32 x 16
+    directories published through ``type: path`` and ``type: meta-log``
+    stores, then the recursive list, one prefix scan, the scrub
+    pre-scan, the GC liveness walk, ``namespace_snapshot`` and a cold
+    index rebuild timed on each, as bench.py times them.  ``stores`` is
+    ``(MetadataFormat, MetadataPath, MetadataLog, MetaLogStore)``, the
+    port's when None.  Every ~97th reference is byte-identical across
+    the stores; the listings and the liveness sets are equal."""
+    if stores is None:
+        from chunky_bits_tpu_torch.cluster.meta_log import (MetadataLog,
+                                                            MetaLogStore)
+        from chunky_bits_tpu_torch.cluster.metadata import (MetadataFormat,
+                                                            MetadataPath)
+
+        stores = (MetadataFormat, MetadataPath, MetadataLog, MetaLogStore)
+    fmt_cls, path_cls, log_cls, log_store_cls = stores
+    names = [ab18_name(i) for i in range(objects)]
+    refs = [ab18_ref(i) for i in range(objects)]
+
+    async def walk(store, top: str = ".") -> list:
+        found, stack = [], [top]
+        while stack:
+            at = stack.pop()
+            for entry in await store.list(at):
+                if str(entry.path) in (".", at):
+                    continue
+                if entry.is_directory():
+                    stack.append(entry.path)
+                elif entry.is_file():
+                    found.append(entry.path)
+        return found
+
+    async def leg(kind: str) -> dict:
+        meta = os.path.join(root, f"ab18_{kind}")
+        os.makedirs(meta)
+        fmt = fmt_cls("json-strict")
+        store = (path_cls(path=meta, format=fmt) if kind == "path"
+                 else log_cls(path=meta, format=fmt))
+        t = {}
+        t0 = time.perf_counter()
+        for name, obj in zip(names, refs):
+            await store.write(name, obj)
+        t["put_s"] = time.perf_counter() - t0
+        recursive = getattr(store, "list_files_recursive", None)
+        t0 = time.perf_counter()
+        files = await (recursive("") if recursive else walk(store))
+        t["list_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        subtree = await (recursive("ns07") if recursive
+                         else walk(store, "ns07"))
+        t["prefix_ms"] = (time.perf_counter() - t0) * 1e3
+        # the scrub pre-scan: one index scan of publish-time node keys
+        # (scrub.py's _index_prescan) against the walk that reads and
+        # parses every reference (_namespace_refs on a path store)
+        index_nodes = getattr(store, "namespace_nodes", None)
+        t0 = time.perf_counter()
+        if index_nodes is not None:
+            rows = await index_nodes()
+            assert rows is not None, "the node-key projection is missing"
+            scanned = [(2, name) for name, _keys in rows]
+        else:
+            scanned = [(p, await store.read(p)) for p in await walk(store)]
+        t["scrub_ms"] = (time.perf_counter() - t0) * 1e3
+        # the GC liveness walk (find-unused-hashes): the index's hash
+        # projection against reading every reference
+        live = set()
+        index_hashes = getattr(store, "namespace_hashes", None)
+        t0 = time.perf_counter()
+        if index_hashes is not None:
+            rows = await index_hashes()
+            assert rows is not None, "the hash projection is missing"
+            for _name, hashes in rows:
+                live.update(hashes)
+        else:
+            for p in await walk(store):
+                for part in (await store.read(p))["parts"]:
+                    for chunk in part["data"] + part["parity"]:
+                        live.add("sha256-" + chunk["sha256"])
+        t["gc_ms"] = (time.perf_counter() - t0) * 1e3
+        if kind == "meta-log":
+            t0 = time.perf_counter()
+            fetched = await store.namespace_snapshot()
+            t["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+            assert len(fetched) == objects, len(fetched)
+            del fetched
+            t0 = time.perf_counter()
+            cold = len(log_store_cls(meta).live_names())
+            t["cold_ms"] = (time.perf_counter() - t0) * 1e3
+            assert cold == objects, cold
+        assert len(files) == len(scanned) == objects, (len(files),
+                                                       len(scanned))
+        assert len(subtree) == sum(1 for n in names
+                                   if n.startswith("ns07/")), len(subtree)
+        return {"times": t, "files": sorted(str(f) for f in files),
+                "subtree": sorted(str(f) for f in subtree), "live": live,
+                "meta": meta}
+
+    path_leg = asyncio.run(leg("path"))
+    log_leg = asyncio.run(leg("meta-log"))
+    log_store = log_store_cls(log_leg["meta"])
+    step = max(1, objects // 97)
+    compared = 0
+    for i in list(range(0, objects, step)) + [objects - 1]:
+        with open(os.path.join(path_leg["meta"],
+                               *names[i].split("/")), "rb") as f:
+            assert f.read() == log_store.read_bytes(names[i]), names[i]
+        compared += 1
+    assert path_leg["files"] == log_leg["files"], "config 18: listings"
+    assert path_leg["subtree"] == log_leg["subtree"], "config 18: prefix"
+    assert path_leg["live"] == log_leg["live"], "config 18: liveness sets"
+    speedups = {key: path_leg["times"][key] / log_leg["times"][key]
+                for key in ("list_ms", "prefix_ms", "scrub_ms", "gc_ms")}
+    pt, lt = path_leg["times"], log_leg["times"]
+    log(f"  config 18: {objects} refs in 32 x 16 directories; PUT path/log "
+        f"{objects / pt['put_s']:.0f}/{objects / lt['put_s']:.0f} refs/s; "
+        + "; ".join(f"{key[:-3]} {pt[key]:.2f} vs {lt[key]:.2f} ms "
+                    f"({speedups[key]:.1f}x)" for key in speedups)
+        + f"; snapshot {lt['snapshot_ms']:.1f} ms, cold index "
+        f"{lt['cold_ms']:.1f} ms; {compared} refs byte-identical, listings, "
+        f"prefix scans and liveness sets equal")
+    return {"path": path_leg, "log": log_leg, "speedups": speedups,
+            "compared": compared}
+
+
+def ab_config17(path, be, rec, devices, geo: Geometry = AB17_GEO,
+                parts: int = AB17_PARTS, batches: int = AB17_BATCHES,
+                iters: int = AB17_ITERS, oracle=None) -> dict:
+    """BASELINE config 17: ``be`` (one device) against ``MeshBackend`` over
+    ``devices`` at the default depth and at depth 0, each through
+    ``encode_hash_batches`` and ``reconstruct_batch_picked``, best of
+    ``iters``.  Parity, digests and rebuilt rows equal the ``oracle``
+    backend's (the port's numpy backend when None) and hashlib's on every
+    leg; the pipelined leg's window shows overlap and the depth-0 leg's
+    none."""
+    from chunky_bits_tpu_torch.ops import matrix
+    from chunky_bits_tpu_torch.ops.backend import ErasureCoder, NumpyBackend
+    from chunky_bits_tpu_torch.ops.mesh_backend import (MeshBackend,
+                                                        plan_layout)
+
+    d, p, size = geo.d, geo.p, geo.chunk
+    rng = np.random.default_rng(SEED + 17)
+    data = [rng.integers(0, 256, (parts, d, size), dtype=np.uint8)
+            for _ in range(batches)]
+    nbytes = batches * parts * d * size
+    enc = matrix.build_encode_matrix(d, p)
+    oracle = oracle or NumpyBackend()
+    with ThreadPoolExecutor() as pool:
+        parity = list(pool.map(lambda b: oracle.apply_matrix(enc[d:], b),
+                               data))
+    digests = [np.concatenate([hashlib_rows(b), hashlib_rows(o)], axis=1)
+               for b, o in zip(data, parity)]
+    erased = sorted(rng.choice(d + p, size=p, replace=False).tolist())
+    present = [i for i in range(d + p) if i not in erased]
+    picked = [np.ascontiguousarray(
+        np.concatenate([b, o], axis=1)[:, present[:d]])
+        for b, o in zip(data, parity)]
+    lost = [np.concatenate([b, o], axis=1)[:, erased]
+            for b, o in zip(data, parity)]
+    legs = {"single": (be, rec),
+            "mesh": MeshBackend(devices=devices),
+            "mesh_nopipe": MeshBackend(depth=0, devices=devices)}
+    for name in ("mesh", "mesh_nopipe"):
+        legs[name] = (legs[name], DispatchRecorder(legs[name]))
+    lay = plan_layout(len(devices), parts, d, size)
+    expected, out = {}, {}
+
+    def run(backend) -> dict:
+        coder = ErasureCoder(d, p, backend)
+
+        def encode():
+            return coder.encode_hash_batches(data)
+
+        def decode():
+            return [coder.reconstruct_batch_picked(pk, present, erased)
+                    for pk in picked]
+
+        for (par, dig), want_p, want_d in zip(encode(), parity, digests):
+            assert np.array_equal(par, want_p), "config 17: parity"
+            assert np.array_equal(dig, want_d), "config 17: digests"
+        for got, want in zip(decode(), lost):
+            assert np.array_equal(got, want), "config 17: rebuilt rows"
+        best = {}
+        for label, fn in (("encode", encode), ("decode", decode)):
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            best[label] = gib_s(nbytes, min(times))
+        return best
+
+    for name, (backend, recorder) in legs.items():
+        recorder.expected()
+        tag = f"ab17_{name}"
+        out[name] = path(tag, run, backend)
+        expected[tag] = recorder.expected()
+        st = getattr(backend, "pipeline", None)
+        out[name]["window"] = vars(st.stats()) if st is not None else None
+        log(f"  config 17 {name}: encode {out[name]['encode']:.3f} GiB/s, "
+            f"decode {out[name]['decode']:.3f} GiB/s; launches "
+            f"{expected[tag]}; window {out[name]['window']}")
+    on, off = out["mesh"]["window"], out["mesh_nopipe"]["window"]
+    assert (on["max_inflight"] >= 2 and on["submits_while_busy"] >= 1
+            and on["host_overlap_s"] > 0 and on["cancelled"] == 0
+            and on["completed"] == on["submitted"]), on
+    assert (off["max_inflight"] <= 1 and off["submits_while_busy"] == 0
+            and off["cancelled"] == 0), off
+    out["layout"] = ("dp%d/%s%d" % (lay.dp, "tp" if lay.wide else "sp",
+                                    lay.minor))
+    log(f"  config 17: parity, digests and rebuilt rows equal to numpy and "
+        f"hashlib on all three legs; mesh layout {out['layout']} (K2 "
+        f"{'runs' if lay.wide else 'does not run'}); the pipelined window "
+        f"overlapped ({on['max_inflight']} in flight, "
+        f"{on['submits_while_busy']} submits while busy, "
+        f"{on['host_overlap_s']:.4f} s of host work hidden), the depth-0 "
+        f"one did not")
+    return {"expected": expected, **out}
+
+
+def phase_baseline_ab(blob: bytes, path, counts, be, devices) -> tuple:
+    """The baseline_ab group: the JAX package's A/Bs of BASELINE configs
+    4, 6, 7, 8, 10, 18 and 17 (bench.py) through the port's entry points
+    on ``be``, each step a path of its own for the launch counts.
+    Returns the expected launches and the commonest config-4 dispatch
+    shape ``(B, r, k, S)`` for the timings."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    expected = {}
+    rec = ApplyRecorder(be)
+    t_group = time.perf_counter()
+    try:
+        r4 = ab_config4(blob, path, be)
+        expected.update(r4["expected"])
+        shape = Counter(r4["legs"]["ab4_host_sha"]["shapes"]).most_common(
+            1)[0][0]
+        del r4
+        stamp("baseline_ab config 4")
+        with tempfile.TemporaryDirectory(prefix="cb_ab_") as root:
+            for fn in (ab_config6, ab_config7, ab_config8, ab_config10):
+                sub = os.path.join(root, fn.__name__)
+                os.makedirs(sub)
+                expected.update(fn(sub, blob, path, be, rec)["expected"])
+                shutil.rmtree(sub)
+                stamp(f"baseline_ab {fn.__name__}")
+            sub = os.path.join(root, "ab18")
+            os.makedirs(sub)
+            path("ab18", ab_config18, sub)
+            expected["ab18"] = {name: 0 for name in KERNELS}
+            stamp("baseline_ab config 18")
+        expected.update(ab_config17(path, be, rec, devices)["expected"])
+        stamp("baseline_ab config 17")
+    finally:
+        rec.close()
+    for name in expected:
+        for kernel in KERNELS:
+            expected[name].setdefault(kernel, 0)
+    log(f"baseline_ab: {len(expected)} paths in "
+        f"{time.perf_counter() - t_group:.1f} s; config 4's commonest "
+        f"dispatch {list(shape)}")
+    return expected, shape
+
+
 def phase_timings(torch, dev, coder, data: np.ndarray,
-                  parity: np.ndarray, repair_shapes=None) -> list[dict]:
+                  parity: np.ndarray, repair_shapes=None,
+                  ab_shape=None) -> list[dict]:
     """Each kernel at the main path's launch shape beside its plain
     version and its bound; the two GF kernels in turns (K1, K3, K3, K1).
     K1 also at the three commonest shapes of the repair planner's
-    dispatches (``repair_shapes``, a Counter of ``(B, r, k, S)``).  No
+    dispatches (``repair_shapes``, a Counter of ``(B, r, k, S)``), and K1
+    and the SHA kernel at config 4's commonest dispatch (``ab_shape``)
+    and K1 at config 8's one-part read.  No
     single PyTorch call computes any of the three functions, so
     ``library_ms`` is null."""
     from chunky_bits_tpu_torch.ops import _build, gf_kernel, matrix, sha256
@@ -3939,6 +4878,40 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
             f"{s_}]: {ms_g:.4f} ms, plain {plain_g:.3f} ms, bound "
             f"{bound_g:.5f} ms ({by_g}); equal to the plain version")
         del x_g, got_g
+    # K1 at the baseline_ab group's shapes: config 4's commonest coalesced
+    # encode and config 8's one-part read (two data rows rebuilt from
+    # chunks 2, 3 and 4), 10 launches back to back
+    gf["baseline_ab"] = []
+    ab_cases = [("config8 one part", 1, 3, 2, AB8_GEO.chunk, dec3)]
+    if ab_shape is not None:
+        b4, r4, k4, s4 = ab_shape
+        ab_cases.insert(0, ("config4", b4, k4, r4, s4,
+                            matrix.build_encode_matrix(k4, r4)[k4:]))
+    for label, n, k, r, s_, mat in ab_cases:
+        t_g = gf_kernel.to_device_matrix(mat, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        x_g = torch.randint(0, 256, (n, k, s_), generator=gen,
+                            dtype=torch.uint8, device=dev)
+        got_g = gf_kernel.apply_matrix(t_g, x_g)
+        err_g = int((got_g.int() - gf_kernel.apply_matrix_plain(t_g, x_g)
+                     .int()).abs().max())
+        assert err_g == 0, (label, err_g)
+        ms_g = time_cuda(torch, lambda: gf_kernel.apply_matrix(t_g, x_g),
+                         inner=10)
+        plain_g = time_cuda(
+            torch, lambda: gf_kernel.apply_matrix_plain(t_g, x_g), reps=1)
+        bound_g, by_g = gf_apply_bound(n, k, r, s_, t_g.numel())
+        gf["baseline_ab"].append({
+            "label": label, "shape": [n, k, s_], "rows": r, "ms": ms_g,
+            "plain_ms": plain_g, "bound_ms": bound_g, "bound_by": by_g,
+            "max_abs_err": err_g})
+        log(f"gf_apply at {label}'s shape [{n}, {k}, {s_}] -> [{n}, {r}, "
+            f"{s_}]: {ms_g:.4f} ms, plain {plain_g:.3f} ms, bound "
+            f"{bound_g:.5f} ms ({by_g}); equal to the plain version")
+        if label == "config4":
+            sha_case = (x_g, got_g)
+        else:
+            del x_g, got_g
     # K1 at the repair planner's commonest dispatch shapes (one part, a
     # digest block or a whole chunk; a pm-msr projection or combine)
     gf["repair"] = []
@@ -3973,7 +4946,8 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
     for key in [key for key in packed if key.startswith(("one_part",
                                                           "config5",
                                                           "repair",
-                                                          "small_decodes"))]:
+                                                          "small_decodes",
+                                                          "baseline_ab"))]:
         del packed[key]
     log(f"gf_apply_packed [{b}, {D}, {s}] -> [{b}, {P}, {s}]: encode "
         f"{k3_ms:.3f} ms, 4-erasure decode {k3_ms_dec:.3f} ms (gf_apply "
@@ -4019,6 +4993,39 @@ def phase_timings(torch, dev, coder, data: np.ndarray,
         t0 = time.perf_counter()
         list(pool.map(lambda r: hashlib.sha256(r).digest(), host_rows))
         host_ms = (time.perf_counter() - t0) * 1e3
+    del host_rows
+    if ab_shape is not None:
+        # the SHA kernel at config 4's rows: the d+p rows of the commonest
+        # coalesced dispatch, as its device-SHA leg launches it
+        x4, par4 = sha_case
+        n4 = x4.shape[0] * (x4.shape[1] + par4.shape[1])
+        s4 = x4.shape[2]
+        rows4 = torch.cat([x4, par4], dim=1).reshape(n4, s4)
+        dig4 = sha256.sha256_parts(x4, par4).reshape(n4, 32)
+        assert np.array_equal(dig4.cpu().numpy(),
+                              hashlib_rows(rows4.cpu().numpy()))
+        ms4 = time_cuda(torch, lambda: sha256.sha256_parts(x4, par4))
+        held4 = []
+        plain4 = time_cuda(
+            torch, lambda: held4.append(sha256.sha256_rows_plain(rows4)),
+            reps=1, warm=0)
+        err4 = int((dig4.int() - held4[0].int()).abs().max())
+        blocks4 = sha256.blocks_per_row(s4)
+        t4_bytes = (n4 * s4 + n4 * 32) / HBM_BYTES_PER_S * 1e3
+        t4_ops = (n4 * blocks4 * sha256.OPS_PER_BLOCK / INT32_OPS_PER_S
+                  * 1e3)
+        chain4, _, _ = sha_chain_floor(mix, per_pass, blocks4)
+        sha["max_abs_err"] = max(sha["max_abs_err"], err4)
+        sha["config4"] = {
+            "shape": [n4, s4], "ms": ms4, "plain_ms": plain4,
+            "bound_ms": max(t4_bytes, t4_ops),
+            "bound_by": "bytes" if t4_bytes >= t4_ops else "operations",
+            "chain_floor_ms": chain4, "max_abs_err": err4}
+        log(f"sha256_rows at config 4's rows [{n4}, {s4}]: {ms4:.3f} ms, "
+            f"plain {plain4:.1f} ms, bound {sha['config4']['bound_ms']:.3f} "
+            f"ms ({sha['config4']['bound_by']}), chain floor {chain4:.3f} "
+            f"ms; max_abs_err {err4}, all digests equal hashlib")
+        del x4, par4, rows4, held4, sha_case
     log(f"sha256_rows consumer loop, one compression: {issued:.1f} "
         f"instructions, {int_pipe:.1f} of them on the integer pipe ({mix}, "
         f"{per_pass} compression(s) a pass); the whole function, counted "
@@ -4662,12 +5669,19 @@ def main() -> int:
                                     smi))
     stamp("sanitizer")
 
+    # the baseline_ab group: the JAX package's A/Bs of BASELINE configs 4,
+    # 6, 7, 8, 10, 18 and 17 through the port's entry points on the card
+    ab_expected, ab_shape = phase_baseline_ab(blob, path, counts, be,
+                                              devices)
+    expected.update(ab_expected)
+    stamp("baseline_ab")
+
     for name, got in counts.items():
         log(f"launches on {name}: {got}")
     assert counts == expected, (counts, expected)
 
     kernels = phase_timings(torch, dev, coder, data, parity,
-                            repair_shapes)
+                            repair_shapes, ab_shape)
     del data, parity, digests
     kernels.extend(phase_acc_timings(torch, dev))
     stamp("timings")
