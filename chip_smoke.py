@@ -41,7 +41,7 @@ drives the main paths:
   destinations with shards 0, 5, 9, 21, 23 and 25 of every part lost;
 * the ``cluster_cli`` group, the port's CLI (``cli.main.main``) in this
   process over cluster YAMLs on the local disk: config 2 with ``backend:
-  cuda`` (~1 GiB: cp, cat, verify, shards 0, 1, 12 and 13 of every part
+  cuda`` (~512 MiB: cp, cat, verify, shards 0, 1, 12 and 13 of every part
   deleted, verify, resilver, verify, cat, then ls, file-info, get-hashes
   and find-unused-hashes against the reference on disk); config 5 with
   the JAX package's ``backend: "jax:dp2,tp4"`` (cp, cat, 6 shards lost,
@@ -66,7 +66,7 @@ drives the main paths:
 * the ``storage`` group, slab destinations, meta-log metadata, scrub and
   the repair planner: config 2 through the CLI in this process over 7
   ``slab:`` + 7 ``path`` destinations with ``metadata: {type:
-  meta-log}`` and 4 KiB digest blocks (~1 GiB: cp, one flipped byte in
+  meta-log}`` and 4 KiB digest blocks (~512 MiB: cp, one flipped byte in
   one chunk of 20 parts and the only replica of a whole chunk dropped in
   10 others, ``scrub --once`` with exact scrub and repair counts, verify,
   cat, meta-compact, ls, find-unused-hashes over the slab and path
@@ -119,7 +119,7 @@ drives the main paths:
   through ``FileWriteBuilder`` and a ``HostPipeline`` to the void
   destination, the same stream on 14 path destinations read back with
   shards 0, 1, 12 and 13 of every part lost, ``gateway.serve`` at config
-  19's geometry with QoS on (a PUT, 20 s of the config-19 flood, a Range
+  19's geometry with QoS on (a PUT, 10 s of the config-19 flood, a Range
   GET and a 304) and ``az_outage`` at N=100, seed 0; first in this
   process with the sanitizer off, then in a child (``--sanitizer-worker``)
   with ``CHUNKY_BITS_TORCH_SANITIZE=1``, whose report must be clean (0
@@ -134,15 +134,30 @@ drives the main paths:
   16 in flight through one ``EncodeHashBatcher``, host SHA then the SHA
   kernel (parity equal to numpy, digests to hashlib); config 6's 64 MiB
   object read 5 times with the chunk cache off and on (the cached reads
-  decode nothing); config 7's 1 GiB PUT through ``make_app`` at
+  decode nothing); config 7's 512 MiB PUT through ``make_app`` at
   ``host_threads`` 1 and 2, best of 2, every object read back; config
   8's hedged-read A/B on five chunk nodes served from this process, node
   0 slowed 100 ms (no hedge off, the budget held on, the on leg's p99
   below the off leg's); config 10's 150 small objects through ``path``
-  and ``slab:`` clusters with equal GC candidate sets; config 18's 10,000
+  and ``slab:`` clusters with equal GC candidate sets; config 18's 2,500
   references through the path store and the meta-log (equal listings and
   liveness sets); config 17's ``cuda`` against ``mesh`` at depth 2 and 0
-  on 8 logical devices (the window overlaps at depth 2 only).
+  on 8 logical devices (the window overlaps at depth 2 only);
+* the ``conformance`` group, the seeded geometries of the conformance
+  fuzz (``tests/test_conformance_fuzz.py``: 20 Reed-Solomon cells with
+  their erasure patterns, 14 pm-msr cells with their repairs, 4 cells
+  past p erasures and 4 storage geometries) through every kernel: K1 on
+  ``cuda``; the packed kernel on, each cell also at its length rounded
+  up to 256 bytes (K3 inside its gate); ``mesh`` and ``cuda:dp2,tp4`` on
+  the 8 logical devices (K2 and the reduce-and-pack, each also alone
+  against its plain version); pm-msr on ``cuda``; encode+hash with device
+  SHA; objects of 0 and 1 bytes and of a stripe less one, one stripe, a
+  stripe and one and three stripes and a tail through ``slab:`` and path
+  clusters; and more than p erasures, which must raise ``ErasureError``
+  and launch nothing.  Every output equals numpy (hashlib for digests)
+  and the kernel's plain version on the card.  Then ``python -m
+  chunky_bits_tpu_torch config-info`` in a child, timed, must load no
+  torch.
 
 Each of those paths runs with the kernels' launch counts set to 0 just
 before it, and must launch what its blocks and dispatches call for (a
@@ -1137,6 +1152,9 @@ def phase_round_trip(blob: bytes, pipeline, path, sfx: str, expect,
 PM_MSR = Geometry(5, 4, CHUNK, ())
 PM_MSR_PARTS = 51
 SMALL_OBJECT = 3 * D * CHUNK + TAIL
+#: the cluster_cli group's config-2 object: ~512 MiB, cut from the ~1 GiB
+#: of the on-disk round trips for the script's time
+CLI_PARTS = DISK_PARTS // 2
 
 
 class ApplyRecorder:
@@ -1157,11 +1175,15 @@ class ApplyRecorder:
 
         backend.apply_matrix = apply_matrix
 
+    def take(self) -> list[tuple]:
+        """The recorded shapes that launch (none of B, r, k, S is 0),
+        then cleared."""
+        shapes, self.shapes = self.shapes, []
+        return [sh for sh in shapes if 0 not in sh]
+
     def expected(self) -> dict:
         """Launches the recorded calls call for, then cleared."""
-        shapes, self.shapes = self.shapes, []
-        return expected_gf(self.backend,
-                           [sh for sh in shapes if 0 not in sh], False)
+        return expected_gf(self.backend, self.take(), False)
 
     def close(self) -> None:
         del self.backend.apply_matrix
@@ -1340,7 +1362,7 @@ def phase_cluster_cli(blob: bytes, path, counts, be, tp_be,
         top = os.path.join(root, "c2")
         os.makedirs(top)
         conf = cluster_yaml(top, CONFIG2, "cuda")
-        total = DISK_PARTS * D * CHUNK + TAIL
+        total = CLI_PARTS * D * CHUNK + TAIL
         src = os.path.join(root, "src2.bin")
         write_source(src, blob, total)
         out = os.path.join(root, "out")
@@ -1362,7 +1384,7 @@ def phase_cluster_cli(blob: bytes, path, counts, be, tp_be,
             "verify must name every deleted chunk"
         report = step("cli_resilver", ["resilver", obj], txt,
                       len(lost) * CHUNK, k1).decode()
-        check_resilver(report, DISK_PARTS + 1)
+        check_resilver(report, CLI_PARTS + 1)
         report = step("cli_verify_resilvered", ["verify", obj],
                       txt).decode()
         assert report.startswith("file\tValid"), report[:200]
@@ -2106,6 +2128,10 @@ C2_FLIPPED, C2_DROPPED = 20, 10
 #: the gateway's scrub rate: far above what one pass reads, so the pass
 #: is not throttled
 GW_SCRUB_RATE = 1 << 30
+#: the storage group's config-2 object: ~512 MiB, cut from the ~1 GiB of
+#: the other groups' on-disk objects for the script's time; it holds more
+#: parts than the 30 the damage step touches
+ST_PARTS = DISK_PARTS // 2
 
 
 def flip_replica(location, offset: int) -> None:
@@ -2259,7 +2285,7 @@ def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
         os.makedirs(top)
         conf = cluster_yaml(top, CONFIG2, "cuda", slabs=7, meta="meta-log",
                             block=BLOCK)
-        total = DISK_PARTS * D * CHUNK + TAIL
+        total = ST_PARTS * D * CHUNK + TAIL
         src = os.path.join(root, "src2.bin")
         write_source(src, blob, total)
         out = os.path.join(root, "out")
@@ -2275,9 +2301,9 @@ def phase_storage(blob: bytes, path, counts, be, tp_rec) -> tuple:
                          BLOCK * (7 * i % (CHUNK // BLOCK)) + 123 + i)
         for i in range(C2_FLIPPED, C2_FLIPPED + C2_DROPPED):
             drop_replica(unique_chunk(ref, i, i).locations[0])
-        replica_bytes = (DISK_PARTS * (D + P) * CHUNK
+        replica_bytes = (ST_PARTS * (D + P) * CHUNK
                          + (D + P) * -(-TAIL // D))
-        replicas = (DISK_PARTS + 1) * (D + P)
+        replicas = (ST_PARTS + 1) * (D + P)
         fused = FusedCount()
         (text, dt, shapes) = step("st_scrub", run_cli,
                                   ["scrub", "--once", conf], txt,
@@ -3493,7 +3519,7 @@ def phase_simulator(path, counts, be, tp_rec) -> dict:
 #: of d=10 p=4 at 1 MiB, and the tail)
 SAN_PARTS = DISK_PARTS
 #: config 19's QoS-on leg under the sanitizer: the flood runs this long
-SAN_GW_SECONDS = 20.0
+SAN_GW_SECONDS = 10.0
 SAN_STEPS = ("ingest", "degraded_read", "gateway", "scenario")
 #: a range inside config 19's 512 KiB object, across a chunk boundary
 SAN_RANGE = (60000, 70999)
@@ -3865,9 +3891,10 @@ AB4_INFLIGHT = 16
 AB_D3P2 = Geometry(3, 2, 1 << 20, ())
 AB6_BYTES = 64 << 20      # config 6 (bench.py:707-804): one object,
 AB6_READS = 5             # 5 timed reads a leg
-AB7_BYTES = 1 << 30       # config 7 (bench.py:805-927): a 1 GiB body,
-AB7_TRIALS = 2            # best of 2 (bench.py: 3; cut for the group's
-                          # time), at host_threads 1 and 2
+AB7_BYTES = 512 << 20     # config 7 (bench.py:805-927): a 512 MiB body
+AB7_TRIALS = 2            # (bench.py: 1 GiB), best of 2 (bench.py: 3),
+                          # at host_threads 1 and 2: both cut for the
+                          # script's time
 AB7_THREADS = (1, 2)
 #: config 8 (bench.py:928-1173): 4 parts of 32 KiB chunks on five nodes,
 #: node 0 slow, 40 passes a leg, hedge floor 10 ms on the ON leg
@@ -3880,8 +3907,9 @@ AB8_HEDGE_MS = 10.0
 AB10_GEO = Geometry(3, 2, 4 << 10, ())
 AB10_OBJECTS = 150
 AB10_OBJ = 16 << 10
-#: config 18 (bench.py:1820-2135): 10,000 refs in 32 x 16 directories
-AB18_OBJECTS = 10_000
+#: config 18 (bench.py:1820-2135): refs in 32 x 16 directories, cut to
+#: 2,500 of bench.py's 10,000 for the script's time
+AB18_OBJECTS = 2_500
 #: config 17 (bench.py:3334-3542): d=10 p=4, 256 KiB, 16 parts x 4
 #: batches, best of 3 iterations, over 8 logical devices
 AB17_GEO = Geometry(10, 4, 256 << 10, ())
@@ -4748,6 +4776,504 @@ def phase_baseline_ab(blob: bytes, path, counts, be, devices) -> tuple:
         f"{time.perf_counter() - t_group:.1f} s; config 4's commonest "
         f"dispatch {list(shape)}")
     return expected, shape
+
+
+# ------------------------------------------------------------ conformance
+#
+# The seeded geometries of the conformance fuzz (tests/test_conformance_fuzz.py
+# and its mirror tests/test_torch_conformance_fuzz.py), drawn from the same
+# seeds in the same order as the tests draw them.
+
+
+def conf_lengths(stripe: int) -> list[int]:
+    """The storage leg's object lengths for a stripe of ``stripe`` bytes:
+    empty, one byte, a stripe less one, a stripe (an empty tail), a
+    stripe and one, and three stripes and a tail."""
+    return [0, 1, stripe - 1, stripe, stripe + 1, 3 * stripe + 17]
+
+
+def conf_rs_cells() -> list[dict]:
+    """The Reed-Solomon cells of the fuzz: ``random<n>``
+    (test_random_geometry_roundtrip), ``xor<n>`` (test_xor_schedule_
+    conformance) and ``mesh<n>`` (test_mesh_backend_conformance), each with
+    its data ``[B, d, S]``, p and erasure patterns."""
+    cells = []
+    for family, seeds, base in (("random", 8, 0), ("xor", 6, 500),
+                                ("mesh", 6, 1600)):
+        for seed in range(seeds):
+            rng = np.random.default_rng(base + seed)
+            d = int(rng.integers(1, 17))
+            p = int(rng.integers(0 if family == "random" else 1, 9))
+            if family == "random":
+                size = int(rng.integers(1, 3000))
+                batch = int(rng.integers(1, 5))
+            elif family == "xor":
+                size = int(rng.integers(1, 300)) * 8
+                batch = int(rng.integers(1, 4))
+            else:
+                size = int(rng.choice([1, 63, 65,
+                                       int(rng.integers(1, 3000))]))
+                batch = int(rng.integers(1, 6))
+            data = rng.integers(0, 256, (batch, d, size), dtype=np.uint8)
+            erasures = [rng.choice(d + p, size=int(rng.integers(1, p + 1)),
+                                   replace=False)
+                        for _ in range(4 if p else 0)]
+            cells.append({"tag": f"{family}{seed}", "data": data, "p": p,
+                          "erasures": erasures})
+    return cells
+
+
+def conf_aligned(cell: dict) -> dict:
+    """``cell`` with its rows wrapped out to the next multiple of 256
+    bytes: the stripe-aligned length inside the packed kernel's gate."""
+    data = cell["data"]
+    s = data.shape[2]
+    pad = -(-s // 256) * 256 - s
+    wide = np.pad(data, ((0, 0), (0, 0), (0, pad)), mode="wrap")
+    return dict(cell, tag=cell["tag"] + "+a256", data=wide)
+
+
+def conf_pm_geometry(rng) -> tuple[int, int]:
+    """A random geometry pm-msr supports, as the fuzz draws it."""
+    k = int(rng.integers(2, 7))
+    return k, int(rng.integers(k - 1, k + 3))
+
+
+def conf_pm_cells() -> list[dict]:
+    """The pm-msr cells of the fuzz: ``pm<n>`` (test_pm_msr_conformance),
+    ``pmxor<n>`` (test_pm_msr_xor_schedule_conformance), ``pmjax`` and
+    ``pmmesh``, each with data, p, erasure patterns and (failed chunk,
+    helpers) repairs."""
+    cells = []
+    for seed in range(8):
+        rng = np.random.default_rng(900 + seed)
+        k, p = conf_pm_geometry(rng)
+        size = int(rng.integers(1, 400)) * (k - 1)
+        batch = int(rng.integers(1, 4))
+        data = rng.integers(0, 256, (batch, k, size), dtype=np.uint8)
+        erasures = [rng.choice(k + p, size=int(rng.integers(1, p + 1)),
+                               replace=False) for _ in range(4)]
+        failures = []
+        for _ in range(3):
+            failed = int(rng.integers(0, k + p))
+            others = [i for i in range(k + p) if i != failed]
+            failures.append((failed, sorted(
+                rng.permutation(others)[:2 * (k - 1)].tolist())))
+        cells.append({"tag": f"pm{seed}", "data": data, "p": p,
+                      "erasures": erasures, "failures": failures})
+    for seed in range(4):
+        rng = np.random.default_rng(950 + seed)
+        k, p = conf_pm_geometry(rng)
+        size = int(rng.integers(1, 60)) * 8 * (k - 1)
+        data = rng.integers(0, 256, (2, k, size), dtype=np.uint8)
+        erased = rng.choice(k + p, size=p, replace=False)
+        failed = int(rng.integers(0, k + p))
+        helpers = [i for i in range(k + p) if i != failed][:2 * (k - 1)]
+        cells.append({"tag": f"pmxor{seed}", "data": data, "p": p,
+                      "erasures": [erased], "failures": [(failed, helpers)]})
+    for tag, k, p, seed, erased, failure in (
+            ("pmjax", 3, 2, 1000, (0, 4), (0, [1, 2, 3, 4])),
+            ("pmmesh", 5, 4, 1700, (1, 6), (1, [0, 2, 3, 4, 5, 6, 7, 8]))):
+        rng = np.random.default_rng(seed)
+        data = rng.integers(0, 256, (2, k, 64 * (k - 1)), dtype=np.uint8)
+        cells.append({"tag": tag, "data": data, "p": p,
+                      "erasures": [erased], "failures": [failure]})
+    return cells
+
+
+def conf_raise_cells() -> list[dict]:
+    """test_too_many_erasures_raise's cells: p+1 shards lost."""
+    cells = []
+    for seed in range(4):
+        rng = np.random.default_rng(100 + seed)
+        d = int(rng.integers(2, 9))
+        p = int(rng.integers(1, 5))
+        data = rng.integers(0, 256, (1, d, 257), dtype=np.uint8)
+        cells.append({"tag": f"raise{seed}", "data": data, "p": p,
+                      "erased": rng.choice(d + p, size=p + 1,
+                                           replace=False)})
+    return cells
+
+
+def conf_object_geometries() -> list[tuple]:
+    """test_slab_vs_path_storage_roundtrip_fuzz's geometries ``(tag, d, p,
+    chunk_log2, rng)``; the rng goes on to draw the payloads and
+    erasures."""
+    out = []
+    for seed in range(4):
+        rng = np.random.default_rng(300 + seed)
+        d = int(rng.integers(2, 7))
+        p = int(rng.integers(1, 4))
+        out.append((f"slab{seed}", d, p, int(rng.integers(10, 14)), rng))
+    return out
+
+
+def plain_backend(torch, dev, packed: bool = False):
+    """A backend whose every apply is the GF kernel's plain version on
+    ``dev`` (the packed kernel's where ``packed`` and its gate admit the
+    shape): what each kernel of a leg is held against."""
+    from chunky_bits_tpu_torch.ops import gf_kernel
+    from chunky_bits_tpu_torch.ops.backend import ErasureBackend
+
+    class PlainOnDevice(ErasureBackend):
+        name = "plain"
+
+        def apply_matrix(self, mat, shards):
+            table = gf_kernel.to_device_matrix(mat, dev)
+            x = torch.from_numpy(np.ascontiguousarray(shards)).to(dev)
+            r, k, s = mat.shape[0], x.shape[1], x.shape[2]
+            fn = (gf_kernel.apply_matrix_packed_plain
+                  if packed and gf_kernel.packed_geometry_ok(r, k, s)
+                  else gf_kernel.apply_matrix_plain)
+            return fn(table, x).cpu().numpy()
+
+    return PlainOnDevice()
+
+
+def conf_rs(backend, cells: list[dict]) -> list[tuple]:
+    """Each cell through ``ErasureCoder(d, p, backend)``: its parity, and
+    the rows rebuilt from the reference stripe for each erasure pattern."""
+    from chunky_bits_tpu_torch.ops.backend import ErasureCoder
+
+    outs = []
+    for cell in cells:
+        data, p = cell["data"], cell["p"]
+        d = data.shape[1]
+        coder = ErasureCoder(d, p, backend)
+        parity = coder.encode_batch(data)
+        rebuilt = []
+        for erased in cell["erasures"]:
+            shards = [None if i in erased else cell["full"][0, i]
+                      for i in range(d + p)]
+            rebuilt.append(coder.reconstruct(shards))
+        outs.append((parity, rebuilt))
+    return outs
+
+
+def check_conf_rs(leg: str, cells: list[dict], outs: list[tuple],
+                  plain) -> None:
+    """A leg's parity against numpy and the kernel's plain version, and
+    every rebuilt row against the reference stripe."""
+    from chunky_bits_tpu_torch.ops.backend import ErasureCoder
+
+    for cell, (parity, rebuilt) in zip(cells, outs):
+        data, p = cell["data"], cell["p"]
+        d = data.shape[1]
+        assert np.array_equal(parity, cell["parity"]), (leg, cell["tag"])
+        assert np.array_equal(
+            parity, ErasureCoder(d, p, plain).encode_batch(data)), (
+                leg, cell["tag"])
+        for erased, rows in zip(cell["erasures"], rebuilt):
+            for i in range(d + p):
+                assert np.array_equal(rows[i], cell["full"][0, i]), (
+                    leg, cell["tag"], list(erased), i)
+
+
+def conf_encode_hash(backend, cells: list[dict]) -> list[tuple]:
+    """Each cell through ``ErasureCoder.encode_hash_batch`` on
+    ``backend``: ``(parity, digests)``."""
+    from chunky_bits_tpu_torch.ops.backend import ErasureCoder
+
+    return [ErasureCoder(c["data"].shape[1], c["p"], backend)
+            .encode_hash_batch(c["data"]) for c in cells]
+
+
+def conf_pm(backend, cells: list[dict]) -> list[tuple]:
+    """Each pm-msr cell through ``PMMSRCoder(k, p, backend)``: parity,
+    rebuilt rows, helper projections and regenerated chunks."""
+    from chunky_bits_tpu_torch.ops.pm_msr import PMMSRCoder
+
+    outs = []
+    for cell in cells:
+        data, p = cell["data"], cell["p"]
+        k = data.shape[1]
+        full = cell["full"]
+        coder = PMMSRCoder(k, p, backend)
+        parity = coder.encode_batch(data)
+        rebuilt = [coder.reconstruct([None if i in erased else full[0, i]
+                                      for i in range(k + p)])
+                   for erased in cell["erasures"]]
+        repairs = []
+        for failed, helpers in cell["failures"]:
+            projs = np.stack([coder.project_batch(failed, full[:, h, :])
+                              for h in helpers], axis=1)
+            repairs.append((projs, coder.repair_batch(failed, helpers,
+                                                      projs)))
+        outs.append((parity, rebuilt, repairs))
+    return outs
+
+
+def conf_objects(root: str, backend: str) -> list[str]:
+    """The storage fuzz through clusters on ``backend``: every length of
+    ``conf_lengths`` at each geometry, written through a ``slab:`` cluster
+    and a path cluster and read back; the two give the same content
+    addresses, and the slab object still reads after up to p extents of
+    every part are deleted.  Returns a line per geometry."""
+    from chunky_bits_tpu_torch.utils import aio
+
+    lines = []
+    for tag, d, p, chunk_log2, rng in conf_object_geometries():
+        stripe = d * (1 << chunk_log2)
+        geo = Geometry(d, p, 1 << chunk_log2, ())
+        clusters = []
+        for slabs in (d + p, 0):
+            sub = os.path.join(root, f"{tag}_{'slab' if slabs else 'path'}")
+            os.makedirs(sub)
+            clusters.append(ab_cluster(sub, geo, backend, slabs=slabs))
+        lengths = conf_lengths(stripe)
+
+        async def run() -> None:
+            for n, length in enumerate(lengths):
+                payload = rng.integers(0, 256, length,
+                                       dtype=np.uint8).tobytes()
+                addresses = []
+                for cluster in clusters:
+                    await cluster.write_file(f"o{n}",
+                                             aio.BytesReader(payload),
+                                             cluster.get_profile())
+                    ref = await cluster.get_file_ref(f"o{n}")
+                    got = await cluster.file_read_builder(ref).read_all()
+                    assert got == payload, (tag, length)
+                    addresses.append([str(c.hash) for part in ref.parts
+                                      for c in part.data + part.parity])
+                assert addresses[0] == addresses[1], (tag, length)
+                ref = await clusters[0].get_file_ref(f"o{n}")
+                for part in ref.parts:
+                    chunks = part.data + part.parity
+                    for ci in rng.choice(len(chunks),
+                                         size=int(rng.integers(1, p + 1)),
+                                         replace=False):
+                        await chunks[int(ci)].locations[0].delete()
+                got = await clusters[0].file_read_builder(ref).read_all()
+                assert got == payload, (tag, length, "after erasures")
+
+        asyncio.run(run())
+        lines.append(f"{tag} d={d} p={p} chunk 2^{chunk_log2}: lengths "
+                     f"{lengths} equal through slab: and path, slab reads "
+                     f"whole after erasures")
+    return lines
+
+
+def conf_raises(backend, rs_cells: list[dict], pm_cells: list[dict]
+                ) -> int:
+    """More than p erasures on ``backend``: every reconstruct raises
+    ``ErasureError`` and returns no bytes.  Returns the cases raised."""
+    from chunky_bits_tpu_torch.errors import ErasureError
+    from chunky_bits_tpu_torch.ops.backend import ErasureCoder
+    from chunky_bits_tpu_torch.ops.pm_msr import PMMSRCoder
+
+    raised = 0
+    for cell in rs_cells + pm_cells:
+        data, p = cell["data"], cell["p"]
+        k = data.shape[1]
+        coder = (PMMSRCoder if cell["tag"].startswith("pm")
+                 else ErasureCoder)(k, p, backend)
+        erased = cell.get("erased")
+        if erased is None:
+            erased = list(range(p + 1))
+        full = cell["full"]
+        present = [i for i in range(k + p) if i not in erased]
+        attempts = [lambda: coder.reconstruct(
+            [None if i in erased else full[0, i] for i in range(k + p)])]
+        if coder.code == "rs":
+            attempts.append(lambda: coder.reconstruct_batch(
+                full, present, [int(i) for i in erased]))
+        for attempt in attempts:
+            try:
+                got = attempt()
+            except ErasureError:
+                raised += 1
+            else:
+                raise AssertionError(f"{cell['tag']}: {p + 1} erasures "
+                                     f"returned {type(got).__name__}")
+    return raised
+
+
+def config_info_child() -> dict:
+    """``python -X importtime -m chunky_bits_tpu_torch config-info`` in a
+    child: its wall seconds and whether it imported torch; and ``python
+    -c 'import torch'`` beside it."""
+    from chunky_bits_tpu_torch.cluster.tunables import (BACKEND_ENV,
+                                                        environ_without)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = environ_without(BACKEND_ENV)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "chunky_bits_tpu_torch",
+         "--config", os.devnull, "config-info", "--json"], cwd=here,
+        env=env, check=True, timeout=300, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    assert json.loads(proc.stdout)["default_destination"]["type"] == "void"
+    names = [line.rsplit("|", 1)[1].strip()
+             for line in proc.stderr.splitlines()
+             if line.startswith("import time:") and "|" in line]
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch"], cwd=here,
+                   env=env, check=True, timeout=300)
+    return {"config_info_s": wall,
+            "torch_loaded": any(n == "torch" or n.startswith("torch.")
+                                for n in names),
+            "modules": len(names),
+            "import_torch_s": time.perf_counter() - t0}
+
+
+def phase_conformance(torch, dev, path, be, mesh_rec, tp_rec) -> dict:
+    """The conformance group: the fuzz's seeded geometries through every
+    kernel of the port.  Legs, each a path of its own for the launch
+    counts: ``cuda`` (K1); ``cuda`` with the packed kernel on, each cell
+    also at its length rounded up to 256 bytes (K3 inside its gate, K1
+    outside); ``mesh`` on 8 logical devices (its layout per dispatch) and
+    ``cuda:dp2,tp4`` for the cells whose d 4 divides (K2 and the
+    reduce-and-pack); pm-msr on ``cuda``; the encode-and-hash route with
+    device SHA on (K1 and the SHA kernel); the storage fuzz's objects at
+    every adversarial length through ``slab:`` and path clusters; and
+    more than p erasures, which must raise and launch nothing.  Every
+    output is held against numpy (hashlib for digests) and the kernel's
+    plain version on the card.  Then ``config-info`` in a child, timed,
+    must load no torch.  Returns the expected launches."""
+    import tempfile
+
+    from chunky_bits_tpu_torch.ops import gf_kernel, matrix, sha256
+    from chunky_bits_tpu_torch.ops.backend import ErasureCoder, NumpyBackend
+    from chunky_bits_tpu_torch.ops.pm_msr import PMMSRCoder
+
+    t_group = time.perf_counter()
+    oracle = NumpyBackend()
+
+    def with_reference(cell: dict) -> dict:
+        data, p = cell["data"], cell["p"]
+        coder = (PMMSRCoder if cell["tag"].startswith("pm")
+                 else ErasureCoder)(data.shape[1], p, oracle)
+        cell["parity"] = coder.encode_batch(data)
+        cell["full"] = np.concatenate([data, cell["parity"]], axis=1)
+        return cell
+
+    rs = [with_reference(c) for c in conf_rs_cells()]
+    coded = [c for c in rs if c["p"]]
+    aligned = [with_reference(conf_aligned(c)) for c in coded]
+    pm = [with_reference(c) for c in conf_pm_cells()]
+    raise_cells = [with_reference(c) for c in conf_raise_cells()]
+    plain = plain_backend(torch, dev)
+    mesh_be, tp_be = mesh_rec.backend, tp_rec.backend
+    mesh_rec.take()
+    tp_rec.take()
+    expected: dict[str, dict] = {}
+    rec = ApplyRecorder(be)
+    saved = be.packed, getattr(be, "device_sha", None)
+    try:
+        outs = path("conf_cuda", conf_rs, be, rs)
+        expected["conf_cuda"] = rec.expected()
+        check_conf_rs("cuda", rs, outs, plain)
+
+        be.packed = True
+        outs = path("conf_packed", conf_rs, be, coded + aligned)
+        be.packed = saved[0]
+        expected["conf_packed"] = expected_gf(be, rec.take(), True)
+        check_conf_rs("packed", coded + aligned, outs,
+                      plain_backend(torch, dev, packed=True))
+        gated = sum(gf_kernel.packed_geometry_ok(c["p"], c["data"].shape[1],
+                                                 c["data"].shape[2])
+                    for c in aligned)
+
+        outs = path("conf_mesh", conf_rs, mesh_be, coded)
+        expected["conf_mesh"] = mesh_rec.expected()
+        check_conf_rs("mesh", coded, outs, plain)
+        tp_cells = [c for c in coded if c["data"].shape[1] % TP == 0]
+        outs = path("conf_tp", conf_rs, tp_be, tp_cells)
+        expected["conf_tp"] = tp_rec.expected()
+        check_conf_rs(tp_be.name, tp_cells, outs, plain)
+        # K2 and the reduce-and-pack alone against their plain versions
+        # at each tp cell's encode, outside the counted paths
+        for cell in tp_cells:
+            d, p = cell["data"].shape[1], cell["p"]
+            rows = matrix.build_encode_matrix(d, p)[d:]
+            x = torch.from_numpy(cell["data"]).to(dev)
+            partials = []
+            for cols in np.array_split(np.arange(d), TP):
+                sub = gf_kernel.to_device_matrix(rows[:, cols], dev)
+                xs = x[:, cols].contiguous()
+                acc = gf_kernel.accumulate(sub, xs)
+                assert torch.equal(acc, gf_kernel.accumulate_plain(sub, xs))
+                partials.append(acc)
+            packed_out = gf_kernel.reduce_pack(partials)
+            assert torch.equal(packed_out,
+                               gf_kernel.reduce_pack_plain(partials))
+            assert np.array_equal(packed_out.cpu().numpy(),
+                                  cell["parity"]), cell["tag"]
+
+        outs = path("conf_pm_msr", conf_pm, be, pm)
+        expected["conf_pm_msr"] = rec.expected()
+        mine = conf_pm(plain, pm)
+        for cell, got, want in zip(pm, outs, mine):
+            k, p = cell["data"].shape[1], cell["p"]
+            oracle_pm = PMMSRCoder(k, p, oracle)
+            assert np.array_equal(got[0], cell["parity"]), cell["tag"]
+            assert np.array_equal(got[0], want[0]), cell["tag"]
+            for rows in got[1]:
+                for i in range(k + p):
+                    assert np.array_equal(rows[i], cell["full"][0, i]), (
+                        cell["tag"], i)
+            for (failed, helpers), (projs, regen), (pprojs, _) in zip(
+                    cell["failures"], got[2], want[2]):
+                theirs = np.stack([oracle_pm.project_batch(
+                    failed, cell["full"][:, h, :]) for h in helpers], axis=1)
+                assert np.array_equal(projs, theirs), cell["tag"]
+                assert np.array_equal(projs, pprojs), cell["tag"]
+                assert np.array_equal(regen, cell["full"][:, failed, :]), (
+                    cell["tag"], failed)
+
+        be.device_sha = True
+        fused = path("conf_device_sha", conf_encode_hash, be, rs)
+        be.device_sha = saved[1]
+        assert sum(rec.expected().values()) == 0
+        expected["conf_device_sha"] = expected_fused(be, [
+            (c["data"].shape[0], c["p"], c["data"].shape[1],
+             c["data"].shape[2]) for c in coded])
+        for cell, (parity, digests) in zip(rs, fused):
+            assert np.array_equal(parity, cell["parity"]), cell["tag"]
+            want = hashlib_rows(cell["full"])
+            assert np.array_equal(digests, want), cell["tag"]
+            rows = torch.from_numpy(cell["full"]).to(dev)
+            plain_sha = sha256.sha256_rows_plain(
+                rows.reshape(-1, rows.shape[2])).cpu().numpy()
+            assert np.array_equal(plain_sha.reshape(want.shape), want)
+
+        with tempfile.TemporaryDirectory(prefix="cb_conf_") as root:
+            obj_lines = path("conf_objects", conf_objects, root, be.name)
+        expected["conf_objects"] = rec.expected()
+
+        raised = path("conf_raise", conf_raises, be, raise_cells, pm[:4])
+        expected["conf_raise"] = rec.expected()
+        assert raised == 2 * len(raise_cells) + 4, raised
+    finally:
+        be.packed = saved[0]
+        be.device_sha = saved[1]
+        rec.close()
+    for name in expected:
+        for kernel in KERNELS:
+            expected[name].setdefault(kernel, 0)
+    assert sum(expected["conf_raise"].values()) == 0
+    for line in obj_lines:
+        log(f"  {line}")
+    patterns = sum(len(c["erasures"]) for c in rs)
+    log(f"conformance: {len(rs)} rs cells ({patterns} erasure patterns) on "
+        f"cuda, {len(coded + aligned)} with the packed kernel on ({gated} "
+        f"inside its gate), {len(coded)} on mesh, {len(tp_cells)} on "
+        f"{tp_be.name}, {len(pm)} pm-msr cells, {len(rs)} encode+hash with "
+        f"device SHA, {6 * len(obj_lines)} objects x 2 "
+        f"clusters; each equal to numpy or hashlib and the kernel's plain "
+        f"version; {raised} reconstructs past p erasures raised "
+        f"ErasureError")
+    child = config_info_child()
+    log(f"host import: python -m chunky_bits_tpu_torch config-info "
+        f"{child['config_info_s']:.3f} s ({child['modules']} modules, torch "
+        f"loaded: {child['torch_loaded']}); python -c 'import torch' "
+        f"{child['import_torch_s']:.3f} s")
+    assert not child["torch_loaded"], "config-info imported torch"
+    log(f"conformance group: {len(expected)} paths in "
+        f"{time.perf_counter() - t_group:.1f} s")
+    return expected
 
 
 def phase_timings(torch, dev, coder, data: np.ndarray,
@@ -5675,6 +6201,12 @@ def main() -> int:
                                               devices)
     expected.update(ab_expected)
     stamp("baseline_ab")
+
+    # the conformance group: the conformance fuzz's seeded geometries
+    # through every kernel, and the CLI's host path without torch
+    expected.update(phase_conformance(torch, dev, path, be, mesh_rec,
+                                      tp_rec))
+    stamp("conformance")
 
     for name, got in counts.items():
         log(f"launches on {name}: {got}")

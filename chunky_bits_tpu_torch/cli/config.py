@@ -37,6 +37,15 @@ class Config:
         self._cache: dict[str, Cluster] = {}
         self._cache_lock = asyncio.Lock()
 
+    async def aclose(self) -> None:
+        """Close every cached cluster's HTTP session of the running loop
+        (the reference's reqwest clients drop implicitly; aiohttp wants
+        an explicit close or it warns at interpreter exit)."""
+        async with self._cache_lock:
+            clusters = list(self._cache.values())
+        for cluster in clusters:
+            await cluster.tunables.location_context().aclose()
+
     # ---- loading ----
 
     @classmethod

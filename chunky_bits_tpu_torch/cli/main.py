@@ -235,7 +235,15 @@ async def run(args) -> int:
     config = await Config.load_or_default(
         args.config, chunk_size=args.chunk_size,
         data_chunks=args.data_chunks, parity_chunks=args.parity_chunks)
-    return await _run_command(args, config)
+    try:
+        return await _run_command(args, config)
+    finally:
+        # close the loop-bound aiohttp sessions while the loop is alive,
+        # or aiohttp warns "Unclosed client session" at interpreter exit
+        from chunky_bits_tpu_torch.file.location import default_context
+
+        await config.aclose()
+        await default_context().aclose()
 
 
 async def _run_command(args, config) -> int:

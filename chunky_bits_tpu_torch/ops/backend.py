@@ -36,19 +36,28 @@ import hashlib
 import threading
 import warnings
 from abc import ABC, abstractmethod
-from typing import Callable, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Optional, Sequence
 
 import numpy as np
-import torch
 
 from chunky_bits_tpu_torch.errors import ErasureError
-from chunky_bits_tpu_torch.ops import gf256, gf_kernel, matrix
+from chunky_bits_tpu_torch.ops import gf256, matrix
+
+if TYPE_CHECKING:
+    import torch
+
+# torch and the kernels load where a ``torch``, ``cuda`` or mesh backend
+# first runs (``as_tensor``, ``TorchBackend._apply``, ``get_backend``), so
+# host-only commands never pay their import, as the JAX package's host
+# paths never load jax.
 
 
 def as_tensor(arr: np.ndarray) -> torch.Tensor:
     """A CPU tensor over ``arr``'s memory, made contiguous first.  It
     aliases the caller's array, so nothing in the port writes into it;
     torch's warning for read-only arrays is silenced for that reason."""
+    import torch
+
     arr = np.ascontiguousarray(arr, dtype=np.uint8)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -122,6 +131,8 @@ class TorchBackend(ErasureBackend):
         self.packed = packed
 
     def _apply(self, mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+        from chunky_bits_tpu_torch.ops import gf_kernel
+
         return gf_kernel.apply_selected(
             gf_kernel.to_device_matrix(mat, "cpu"), data,
             packed_enabled(self.packed))

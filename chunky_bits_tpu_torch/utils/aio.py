@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import asyncio
 import io
+import os
 from typing import AsyncIterator, Optional, Protocol, runtime_checkable
 
 
@@ -224,6 +225,40 @@ async def copy_reader_to_file(reader: AsyncByteReader, path: str,
             await asyncio.gather(pending, return_exceptions=True)
         await asyncio.to_thread(f.close)
     return total
+
+
+async def copy_reader_to_writer(reader: AsyncByteReader, write,
+                                chunk: int = 1 << 20) -> int:
+    """Streaming copy into an ``async write(bytes)`` callable, double
+    buffered as ``copy_reader_to_file`` is: the write of block n runs as a
+    task while block n+1 is read (the reference's io_copy,
+    src/bin/chunky-bits/util.rs:14-59).  A write that raises propagates
+    from the next step or the ``finally``, so no task is left pending.
+    Returns the bytes copied."""
+    total = 0
+    pending: Optional[asyncio.Future] = None
+    try:
+        while True:
+            data = await reader.read(chunk)
+            if pending is not None:
+                await pending
+                pending = None
+            if not data:
+                break
+            # lint: task-custody-ok awaited at the loop head or in the
+            # finally; the dataflow cannot correlate the
+            # `pending is not None` guard with this assignment
+            pending = asyncio.ensure_future(write(data))
+            total += len(data)
+    finally:
+        if pending is not None:
+            await pending
+    return total
+
+
+def fs_path_join(base: str, name: str) -> str:
+    """``base`` joined with ``name`` as the host's paths join."""
+    return os.path.join(base, name)
 
 
 async def gather_or_cancel(awaitables):

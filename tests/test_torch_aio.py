@@ -290,3 +290,73 @@ def test_open_in_thread_plain_paths():
             await aio.open_in_thread(boom, lambda x: x.close())
 
     bounded(lambda: asyncio.run(main()))
+
+
+#: ``copy_reader_to_writer``'s default block
+COPY_CHUNK = 1 << 20
+
+
+def _copy_to_writer(mod, data, **kwargs):
+    """``mod.copy_reader_to_writer`` of ``data`` into a list; returns the
+    count it reports and the blocks the writer saw."""
+    async def main():
+        got = []
+
+        async def write(block):
+            await asyncio.sleep(0)
+            got.append(bytes(block))
+
+        n = await mod.copy_reader_to_writer(mod.BytesReader(data), write,
+                                            **kwargs)
+        return n, got
+
+    return bounded(lambda: asyncio.run(main()))
+
+
+@pytest.mark.parametrize("size", [0, 1, COPY_CHUNK - 1, COPY_CHUNK,
+                                  COPY_CHUNK + 1])
+def test_copy_reader_to_writer_equals_reference(size):
+    """The byte count and the blocks written equal the JAX package's, at
+    the default block and around it."""
+    from chunky_bits_tpu.utils import aio as jaio
+
+    data = np.random.default_rng(size).integers(
+        0, 256, size, dtype=np.uint8).tobytes()
+    ours = _copy_to_writer(aio, data)
+    assert ours == _copy_to_writer(jaio, data)
+    assert ours[0] == size and b"".join(ours[1]) == data
+
+
+@pytest.mark.parametrize("fail_at", [1, 2, 10])
+def test_copy_reader_to_writer_write_error_propagates(fail_at):
+    """A write that raises propagates out of the copy, no write starts
+    after it, and no task is left pending, as in the JAX package."""
+    from chunky_bits_tpu.utils import aio as jaio
+
+    def attempt(mod):
+        async def main():
+            calls = []
+
+            async def write(block):
+                calls.append(len(block))
+                await asyncio.sleep(0)
+                if len(calls) == fail_at:
+                    raise OSError("disk full")
+
+            with pytest.raises(OSError, match="disk full"):
+                await mod.copy_reader_to_writer(
+                    mod.BytesReader(b"x" * 10_000), write, chunk=1000)
+            others = asyncio.all_tasks() - {asyncio.current_task()}
+            assert not others
+            return calls
+
+        return bounded(lambda: asyncio.run(main()))
+
+    assert attempt(aio) == attempt(jaio) == [1000] * fail_at
+
+
+def test_fs_path_join_equals_reference():
+    from chunky_bits_tpu.utils import aio as jaio
+
+    for base, name in [("/a", "b"), ("/a/", "b"), ("a", "/b"), ("", "b")]:
+        assert aio.fs_path_join(base, name) == jaio.fs_path_join(base, name)

@@ -2,7 +2,7 @@
 assertions of ``tests/test_cli.py``, and against the JAX package's CLI.
 
 Most tests call ``main(argv)`` in this process with standard input and
-output swapped for buffers (a subprocess pays a torch import, ~3 s); two
+output swapped for buffers (a subprocess pays its own start); two
 run the ``python -m`` entry points.  A cluster written by either
 package's CLI must read back, verify and resilver identically through the
 other's.  Every call names a config file of its own, so nothing reads
@@ -270,7 +270,7 @@ def test_error_paths(cluster_yaml, tmp_path, argv, message):
 
 @pytest.mark.parametrize("command",
                          ["http-gateway", "meta-compact", "scrub", "stats"])
-def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
+def test_ported_commands_parse_and_run(cluster_yaml, tmp_path, command):
     """Every one of these commands is ported now, and parses the JAX
     package's arguments with its defaults.  ``stats`` on an unreachable
     gateway and ``meta-compact`` on a path metadata store fail loudly;
@@ -309,7 +309,8 @@ def test_not_yet_ported_commands_raise(cluster_yaml, tmp_path, command):
     # the scrub daemon is ported: the case keeps its id and now checks
     # that such a cluster loads and keeps the tunable
     pytest.param({"scrub_bytes_per_sec": 1e6}, None, id="tunable3-6")])
-def test_unported_serving_tunables_still_refuse(tmp_path, tunable, item):
+def test_serving_tunables_load_and_invalid_values_refuse(tmp_path, tunable,
+                                                       item):
     """The serving plane's opt-in tunables are ported (item 5b: the SLO
     engine and QoS; item 6: the scrub daemon): a cluster YAML naming them
     loads for every command and keeps each value as written, and for the
@@ -814,3 +815,67 @@ def test_gc_grace_window_and_delete_time_recheck(tmp_path, monkeypatch):
     assert is_publish_temp(os.path.basename(name))
     assert not is_publish_temp("sha256-" + "a" * 64)
     assert not is_publish_temp("notes.txt")
+
+
+def test_run_closes_every_http_session_it_opened(tmp_path, monkeypatch):
+    """``cp`` and ``cat`` through a cluster of ``http://`` destinations
+    (``tests/http_node.py``): when ``run`` returns, while its loop is
+    still alive, every aiohttp session the command opened is closed (the
+    config's cached clusters and ``default_context()``, as the JAX
+    package's ``run`` closes them)."""
+    import threading
+
+    from chunky_bits_tpu_torch.cli import main as cli_main
+    from chunky_bits_tpu_torch.file.location import LocationContext
+    from tests.http_node import FakeHttpNode
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(60)
+
+    sessions, at_return = [], []
+    opened = LocationContext.http_session
+
+    def http_session(self):
+        sess = opened(self)
+        if sess not in sessions:
+            sessions.append(sess)
+        return sess
+
+    real_run = cli_main.run
+
+    async def run_and_look(args):
+        try:
+            return await real_run(args)
+        finally:
+            at_return.append([s.closed for s in sessions])
+
+    monkeypatch.setattr(LocationContext, "http_session", http_session)
+    monkeypatch.setattr(cli_main, "run", run_and_look)
+    nodes = [on_loop(FakeHttpNode().start()) for _ in range(5)]
+    try:
+        meta = tmp_path / "meta"
+        meta.mkdir()
+        conf = tmp_path / "http.yaml"
+        conf.write_text(yaml.safe_dump({
+            "destinations": [{"location": f"{n.url}/d{i}/"}
+                             for i, n in enumerate(nodes)],
+            "metadata": {"type": "path", "format": "yaml",
+                         "path": str(meta)},
+            "profiles": {"default": {"data": 3, "parity": 2,
+                                     "chunk_size": 12}}}))
+        payload = bytes(range(256)) * 97
+        cli(tmp_path, "cp", "-", f"{conf}#obj", stdin=payload)
+        out, _err = cli(tmp_path, "cat", f"{conf}#obj")
+        assert out == payload
+    finally:
+        for n in nodes:
+            on_loop(n.stop())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        loop.close()
+    assert len(at_return) == 2 and sessions
+    assert all(all(closed) for closed in at_return), at_return
