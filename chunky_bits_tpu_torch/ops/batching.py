@@ -10,9 +10,14 @@ the gateway serves many PUTs at once) is turned into batch here: whatever
 requests are in flight at the same moment are grouped by compatible shape
 and executed as one ``[B, ...]`` dispatch.
 
-Requests that arrive while a dispatch is running accumulate and form the
-next batch, so batching emerges from concurrency without added latency: a
-lone request is dispatched immediately.
+A lone request is dispatched immediately.  How many dispatches of one
+group may run at once follows the backend: one that runs one walk at a
+time declares ``concurrent_dispatches`` (``cuda``: 1), and a group's
+requests that arrive while that many of its dispatches are running are
+held, then leave together as the next dispatch when one completes.  So
+batching emerges from concurrency without added latency, and the queue
+sits here, where requests merge, not on the backend's lock, where they
+cannot.  A backend that declares nothing takes every group as it comes.
 
 The port of ``chunky_bits_tpu/ops/batching.py`` with the same keys, merge
 policy and ``submit_apply`` feed-ahead route (backends with a dispatch
@@ -28,7 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from chunky_bits_tpu_torch.errors import ErasureError
-from chunky_bits_tpu_torch.ops.backend import get_coder
+from chunky_bits_tpu_torch.ops.backend import get_backend, get_coder
 
 
 class _GroupItemError:
@@ -43,21 +48,39 @@ class _GroupItemError:
         self.err = err
 
 
+def _host_buffer(coder, shape: tuple) -> np.ndarray:
+    """Host memory for a batch that a dispatch fills: the backend's
+    ``host_buffer`` where it has one (``cuda``: page-locked, so its walk
+    copies the batch to the card as it is, with no staging copy)."""
+    alloc = getattr(coder.backend, "host_buffer", None)
+    if alloc is None:
+        return np.empty(shape, dtype=np.uint8)
+    return alloc(shape)
+
+
 class _CoalescingBatcher:
     """Group concurrent requests by key and dispatch each group once.
 
     Instances are per-pipeline (one read stream, one resilver run, one
     cluster ingest scope) and must be used from a single event loop.
     Subclasses implement ``_run_group(key, payloads) -> results`` (called
-    in a worker thread).  The ``_pending``/``_task``/``_inflight``
-    bookkeeping is lock-free because it never leaves the owning loop's
-    thread.
+    in a worker thread).  The ``_queued``/``_running``/``_task``/
+    ``_inflight`` bookkeeping is lock-free because it never leaves the
+    owning loop's thread.
     """
 
     def __init__(self, backend: Optional[str] = None, max_batch: int = 128):
         self.backend = backend
         self.max_batch = max_batch
-        self._pending: list[tuple[tuple, object, asyncio.Future]] = []
+        #: per key, ``(payload, future)`` of the requests not yet
+        #: dispatched, oldest first
+        self._queued: dict[tuple, list] = {}
+        #: per key, its dispatches in flight
+        self._running: dict[tuple, int] = {}
+        #: the backend's ``concurrent_dispatches`` (None: no limit), looked
+        #: up by the first drain
+        self._limit: Optional[int] = None
+        self._limit_known = False
         self._task: Optional[asyncio.Task] = None
         self._inflight: set[asyncio.Task] = set()
         #: codec dispatches issued (merged batches count once; unmerged
@@ -66,10 +89,17 @@ class _CoalescingBatcher:
         #: coalesced groups executed (one per _run_group call) — the
         #: request-grouping factor independent of the merge policy
         self.groups = 0
+        #: requests that waited for an in-flight dispatch of their key
+        #: instead of starting one (backends that declare
+        #: ``concurrent_dispatches``)
+        self.held = 0
 
     async def _submit(self, key: tuple, payload):
         fut = asyncio.get_running_loop().create_future()
-        self._pending.append((key, payload, fut))
+        if (self._limit is not None
+                and self._running.get(key, 0) >= self._limit):
+            self.held += 1
+        self._queued.setdefault(key, []).append((payload, fut))
         if self._task is None or self._task.done():
             self._task = asyncio.create_task(self._drain())
         # resolved (result or exception) by _dispatch in every outcome
@@ -78,52 +108,79 @@ class _CoalescingBatcher:
         # raises on a failed launch instead of parking
         return await fut
 
+    def _backend_limit(self) -> Optional[int]:
+        return getattr(get_backend(self.backend), "concurrent_dispatches",
+                       None)
+
     async def _drain(self) -> None:
         # Yield once so callers scheduled in the same tick can enqueue
         # before the first dispatch.
         await asyncio.sleep(0)
-        pending, self._pending = self._pending, []
-        groups: dict[tuple, list] = {}
-        for item in pending:
-            groups.setdefault(item[0], []).append(item)
-        # Distinct keys are independent work, and nothing waits on anyone
-        # else's group: each dispatch is fired as its own task (no barrier
-        # — a slow group must not stall either the other groups' results
-        # or the next round of arrivals, which simply start a new drain).
-        for key, items in groups.items():
-            for i in range(0, len(items), self.max_batch):
-                task = asyncio.create_task(
-                    self._dispatch(key, items[i:i + self.max_batch]))
-                self._inflight.add(task)
-                task.add_done_callback(self._inflight.discard)
+        if not self._limit_known:
+            # once, off the loop: the lookup may build the backend
+            self._limit_known = True
+            try:
+                self._limit = await asyncio.to_thread(self._backend_limit)
+            # lint: broad-except-ok a backend that cannot be built fails
+            # every dispatch, which delivers the error to its waiters
+            except Exception:
+                pass
+        for key in list(self._queued):
+            self._start(key)
+
+    def _start(self, key: tuple) -> None:
+        """Dispatch ``key``'s queued requests, up to ``max_batch`` a
+        dispatch, while the backend's limit allows.  Distinct keys are
+        independent work, and nothing waits on anyone else's group: each
+        dispatch is its own task (no barrier — a slow group must not stall
+        either the other groups' results or the next round of arrivals)."""
+        queue = self._queued.get(key)
+        while queue and (self._limit is None
+                         or self._running.get(key, 0) < self._limit):
+            group = queue[:self.max_batch]
+            del queue[:self.max_batch]
+            self._running[key] = self._running.get(key, 0) + 1
+            task = asyncio.create_task(self._dispatch(key, group))
+            self._inflight.add(task)
+            task.add_done_callback(self._inflight.discard)
+        if not queue:
+            self._queued.pop(key, None)
 
     async def _dispatch(self, key: tuple, group: list) -> None:
         self.groups += 1
         try:
             results = await asyncio.to_thread(
-                self._run_group, key, [g[1] for g in group])
+                self._run_group, key, [g[0] for g in group])
         # delivered to every waiter via fut.set_exception;
         # CancelledError additionally re-raised
         # lint: broad-except-ok delivered to every waiter via
         # fut.set_exception; CancelledError additionally re-raised
         except BaseException as err:
-            for _, _, fut in group:
+            for _, fut in group:
                 if not fut.done():
                     fut.set_exception(err)
             if isinstance(err, asyncio.CancelledError):
                 raise
         else:
-            for (_, _, fut), res in zip(group, results):
+            for (_, fut), res in zip(group, results):
                 if not fut.done():
                     if isinstance(res, _GroupItemError):
                         fut.set_exception(res.err)
                     else:
                         fut.set_result(res)
+        finally:
+            # the requests held behind this dispatch leave as the next one
+            self._running[key] -= 1
+            if not self._running[key]:
+                del self._running[key]
+            self._start(key)
 
     async def aclose(self) -> None:
         """Drain: await the pending collection task and every in-flight
         dispatch, so owners tearing down (end of a read stream, resilver
         run, or event loop) never abandon waiter futures mid-flight.
+        Requests held behind a dispatch leave as its successor, which is
+        in flight before that dispatch ends, so they are drained too.
         Dispatch errors are delivered to their waiters, not raised here.
 
         A finished dispatch stays in ``_inflight`` until its queued
@@ -198,7 +255,7 @@ class ReconstructBatcher(_CoalescingBatcher):
         # ascending) — one gather pass instead of a full [B, d+p, S]
         # scatter followed by reconstruct_batch's row-pick copy
         use = sorted(present)[:d]
-        picked = np.empty((len(requests), d, size), dtype=np.uint8)
+        picked = _host_buffer(coder, (len(requests), d, size))
         for bi, arrays in enumerate(requests):
             for j, i in enumerate(use):
                 picked[bi, j] = arrays[i]
@@ -267,8 +324,10 @@ class EncodeHashBatcher(_CoalescingBatcher):
         d, p, _size, code = key
         coder = get_coder(d, p, self.backend, code)
         # Merging pending batches into one [ΣB, d, S] dispatch costs a
-        # full extra memcpy (the concatenate).  The cuda backend earns it
-        # back in saved per-dispatch staging, and the torch backend's plain
+        # full extra memcpy (the concatenate).  For the cuda backend it is
+        # none: the concatenate lands in its page-locked ``host_buffer``,
+        # which the walk copies to the card without staging it again, and
+        # merged parts share one launch.  The torch backend's plain
         # versions are vector ops over the whole batch whose SHA loop
         # costs per block, not per row.  numpy loops over parts either
         # way, so for it the copy is pure loss (the JAX package measured
@@ -300,7 +359,8 @@ class EncodeHashBatcher(_CoalescingBatcher):
                     out.append(_GroupItemError(err))
             return out
         self.dispatches += 1
-        merged = np.concatenate(batches, axis=0)
+        merged = np.concatenate(batches, axis=0, out=_host_buffer(
+            coder, (sum(b.shape[0] for b in batches),) + batches[0].shape[1:]))
         parity, digests = self._encode(coder, merged)
         out = []
         lo = 0

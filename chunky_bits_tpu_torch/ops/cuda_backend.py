@@ -4,7 +4,9 @@ The port of ``chunky_bits_tpu/ops/jax_backend.py``.  ``apply_matrix`` walks
 the batch in blocks of parts, double-buffered (``_walk``, the counterpart
 of ``JaxBackend._pipelined_blocks``): the host copies block n+1 into pinned
 staging and a copy stream moves it to the card while block n's kernel runs
-on the compute stream and a third stream brings block n-1's result back.
+on the compute stream and a third stream brings block n-1's result back
+(a batch already in page-locked memory, from ``host_buffer``, goes to the
+card as it is).
 ``on_block(lo, arr)`` fires on the calling thread as each output block
 lands, so callers overlap host work (parity hashing) with the rest.
 
@@ -59,6 +61,11 @@ class CudaBackend(ErasureBackend):
     #: costs a staging round trip, far more than the host concatenate
     prefers_merged_batches = True
 
+    #: dispatches the backend runs at once: a walk holds ``_lock`` from
+    #: staging to its last copy back, so the batchers hold a group's
+    #: later requests themselves, where they merge into the next dispatch
+    concurrent_dispatches = 1
+
     #: input bytes per block of the walk: 128 parts of 10 x 1 MiB chunks
     max_block_bytes = 1280 << 20
 
@@ -111,6 +118,12 @@ class CudaBackend(ErasureBackend):
             else:
                 self._tables.move_to_end(key)
             return table
+
+    def host_buffer(self, shape: tuple) -> np.ndarray:
+        """Page-locked host memory for a batch the caller fills (the
+        batchers' merged batches): a walk over it copies it to the card as
+        it is, with no staging copy."""
+        return torch.empty(shape, dtype=torch.uint8, pin_memory=True).numpy()
 
     def apply_matrix(self, mat: np.ndarray, shards: np.ndarray,
                      on_block: Optional[Callable[[int, np.ndarray], None]]
@@ -177,11 +190,13 @@ class CudaBackend(ErasureBackend):
         flight.  ``launch`` maps a device block ``[n, ...]`` to device
         outputs ``[n, *shape]`` for each of ``shapes``; the host outputs
         are returned, and ``on_block(lo, first_output[lo:hi])`` fires as
-        each block lands."""
+        each block lands.  A page-locked ``shards`` (``host_buffer``)
+        goes to the card as it is; any other is staged block by block."""
         b = shards.shape[0]
         item = tuple(shards.shape[1:])
         outs = [np.empty((b,) + tuple(sh), dtype=np.uint8) for sh in shapes]
         src = as_tensor(shards)
+        staged = not src.is_pinned()
         n0 = min(block, b)
         nslots = 1 if b <= block else 2
         u8 = torch.uint8
@@ -189,7 +204,7 @@ class CudaBackend(ErasureBackend):
         with self._lock, torch.cuda.device(self.device):
             slots = [{
                 "pin_in": torch.empty((n0,) + item, dtype=u8,
-                                      pin_memory=True),
+                                      pin_memory=True) if staged else None,
                 "dev_in": torch.empty((n0,) + item, dtype=u8,
                                       device=self.device),
                 "pin_out": [torch.empty((n0,) + tuple(sh), dtype=u8,
@@ -219,10 +234,12 @@ class CudaBackend(ErasureBackend):
                 slot = slots[j % nslots]
                 if slot["span"] is not None:
                     finish(slot)  # frees this slot's staging and buffers
-                slot["pin_in"][:n].copy_(src[lo:hi])
+                host = src[lo:hi]
+                if staged:
+                    host = slot["pin_in"][:n].copy_(host)
                 dev_in = slot["dev_in"][:n]
                 with torch.cuda.stream(self._h2d):
-                    dev_in.copy_(slot["pin_in"][:n], non_blocking=True)
+                    dev_in.copy_(host, non_blocking=True)
                     landed = torch.cuda.Event()
                     landed.record(self._h2d)
                 with torch.cuda.stream(self._compute):
