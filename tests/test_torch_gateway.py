@@ -36,6 +36,7 @@ from chunky_bits_tpu_torch.gateway import (file_ref_etag, make_app,
 from chunky_bits_tpu_torch.gateway import http as gw
 from chunky_bits_tpu_torch.gateway.http import PROFILER_KEY, HttpRangeError
 from chunky_bits_tpu_torch.obs import metrics as obs_metrics
+from tests.gateway_probe import leave_after_last_sendfile_byte
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -423,6 +424,29 @@ def test_sendfile_corrupt_local_chunk_falls_back(tmp_path):
         await cluster.tunables.location_context().aclose()
 
     arun(main())
+
+
+def test_sendfile_closes_its_file_when_its_client_leaves(tmp_path,
+                                                         monkeypatch):
+    """A client that leaves right after the last byte of a sendfile GET
+    finds the handler's chunk file closed: the port closes it inline,
+    with no thread hop left to cancel.  The JAX gateway closes it with a
+    cancellable thread hop, and would leave it open here (ROADMAP.md
+    Queue C, its sendfile item)."""
+    cluster = make_cluster(tmp_path)
+
+    async def main():
+        files = await leave_after_last_sendfile_byte(
+            make_app(cluster, sendfile=True), monkeypatch)
+        await cluster.tunables.location_context().aclose()
+        return files
+
+    files = arun(main())
+    try:
+        assert all(f.closed for f in files)
+    finally:
+        for f in files:
+            f.close()
 
 
 def test_degraded_get_and_abort_beyond_repair(tmp_path, caplog):
